@@ -1,0 +1,192 @@
+"""TOML-driven command-line front end (counterpart of particlesmc_tpu/cli.py).
+
+`python -m particlesmc_tpu_torch params.toml [--device cpu]` reads the same
+schema as the reference package:
+
+[system]      config / temperature / density / model (or [model."i-j"]
+              blocks) / list_type / list_parameters
+[simulation]  steps / burn / seed / parallel_moves / output_path / nsim /
+              precision (f64 default, f32, mixed = f32 state + f64 ledger)
+[[simulation.move]]    action / policy / probability / parameters
+[[simulation.output]]  algorithm / scheduler_params {linear_interval,
+                       log_base} / callbacks / dependencies / fmt
+
+The run is on the card unless `--device` names another device. Inputs
+outside the ported slice raise NotImplementedError naming the ROADMAP.md
+item that will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tomllib
+from typing import Any, Dict
+
+import torch
+
+from .engine.schedule import build_schedule
+from .moves import base as MB
+from .runtime import resolve_device, unported
+
+
+def _build_pool(move_cfgs):
+    pool = []
+    for mv in move_cfgs:
+        action = mv["action"]
+        policy = mv.get("policy")
+        prob = float(mv["probability"])
+        params = mv.get("parameters", {})
+        if action == "Displacement":
+            if "sigma" not in params:
+                raise ValueError("Missing parameter 'sigma' for action: Displacement")
+            if policy == "SimpleGaussian":
+                pool.append(MB.displacement(params["sigma"], prob))
+            elif policy == "SmartGaussian":
+                raise unported("SmartGaussian displacement", 6)
+            else:
+                raise ValueError(f"Unsupported policy: {policy} for action: {action}")
+        elif action == "DiscreteSwap":
+            if policy not in ("DoubleUniform", "EnergyBias"):
+                raise ValueError(f"Unsupported policy: {policy} for action: {action}")
+            raise unported(f"DiscreteSwap/{policy} moves", 6)
+        elif action == "MoleculeFlip":
+            if policy != "DoubleUniform":
+                raise ValueError(f"Unsupported policy: {policy} for action: {action}")
+            raise unported("MoleculeFlip moves", 7)
+        else:
+            raise ValueError(f"Unsupported action: {action}")
+    return tuple(pool)
+
+
+def _build_outputs(output_cfgs, steps, burn):
+    algos = []
+    for out in output_cfgs:
+        alg = out["algorithm"]
+        sp = out.get("scheduler_params", {})
+        interval = sp.get("linear_interval", steps)
+        if "log_base" in sp:
+            block = build_schedule(interval, 0, float(sp["log_base"]))
+            sched = build_schedule(steps, burn, list(block))
+        else:
+            sched = build_schedule(steps, burn, int(interval))
+        entry: Dict[str, Any] = {"algorithm": alg, "scheduler": sched}
+        if alg == "StoreCallbacks":
+            entry["callbacks"] = tuple(out.get("callbacks", []))
+        elif alg == "StoreAcceptance":
+            entry["dependencies"] = tuple(out.get("dependencies", ["Metropolis"]))
+        elif alg in ("StoreTrajectories", "StoreLastFrames"):
+            entry["fmt"] = out.get("fmt", "XYZ")
+        # Simulation checks the names: NotImplementedError for the reference
+        # package's other algorithms, ValueError for unknown ones
+        algos.append(entry)
+    return algos
+
+
+PRECISIONS = {
+    # name: (state dtype, energy ledger dtype or None)
+    "f64": (torch.float64, None),
+    "float64": (torch.float64, None),
+    "double": (torch.float64, None),
+    # f32 state + f64 ledger: long runs book millions of O(1) energy changes
+    # into an O(1e4) accumulator, which an f32 ledger would let drift
+    "mixed": (torch.float32, torch.float64),
+    "f32x64": (torch.float32, torch.float64),
+}
+
+
+def run_params(params: Dict[str, Any], device=None):
+    """Assemble and run a Simulation from a parsed TOML dict; returns it."""
+    from .engine.simulation import Simulation
+    from .io.loader import load_chains
+
+    device = resolve_device(device)
+    system = params["system"]
+    sim_cfg = params["simulation"]
+    if sim_cfg.get("profile_dir"):
+        raise unported("profile_dir", 12)
+
+    precision = str(sim_cfg.get("precision", system.get("precision", "f64")))
+    dtype, energy_dtype = PRECISIONS.get(precision, (torch.float32, None))
+
+    model = system.get("model", params.get("model"))
+    if model is None:
+        raise ValueError('model must be given in [system] or as [model."i-j"] blocks')
+
+    args = {
+        "temperature": system.get("temperature"),
+        "density": system.get("density"),
+        "model": model,
+        "list_type": system.get("list_type", "LinkedList"),
+        "list_parameters": system.get("list_parameters"),
+        "nsim": sim_cfg.get("nsim"),
+    }
+    chains = load_chains(
+        system["config"], args=args, verbose=bool(sim_cfg.get("verbose", False)),
+        dtype=dtype, energy_dtype=energy_dtype, device=device,
+    )
+
+    steps = int(sim_cfg["steps"])
+    burn = int(sim_cfg.get("burn", 0))
+    pool = _build_pool(sim_cfg.get("move", []))
+    algorithms = [
+        {
+            "algorithm": "Metropolis",
+            "pool": pool,
+            "seed": int(sim_cfg.get("seed", 0)),
+            "sweepstep": int(sim_cfg.get("sweepstep", chains.n_particles)),
+            "parallel_moves": bool(sim_cfg.get("parallel_moves", False)),
+            "spatial_devices": int(sim_cfg.get("spatial_devices", 0)),
+        }
+    ] + _build_outputs(sim_cfg.get("output", []), steps, burn)
+
+    sim = Simulation(
+        chains,
+        algorithms,
+        steps,
+        path=sim_cfg.get("output_path", "./"),
+        verbose=bool(sim_cfg.get("verbose", True)),
+    )
+    sim.run()
+    return sim
+
+
+def run_file(path: str, device=None):
+    """Run the simulation a params file describes; returns the Simulation.
+
+    A relative `[system] config` that does not exist under the working
+    directory resolves against the params file's own directory."""
+    with open(path, "rb") as f:
+        params = tomllib.load(f)
+    cfg = params.get("system", {}).get("config")
+    if cfg and not os.path.isabs(cfg) and not os.path.exists(cfg):
+        beside = os.path.join(os.path.dirname(os.path.abspath(path)), cfg)
+        if os.path.exists(beside):
+            params["system"]["config"] = beside
+    return run_params(params, device=device)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m particlesmc_tpu_torch",
+        description="Run a particlesmc TOML simulation with the PyTorch/CUDA port.",
+    )
+    parser.add_argument("params", help="params.toml")
+    parser.add_argument(
+        "--device", default=None,
+        help="torch device to run on (default: cuda; 'cpu' runs the plain versions)",
+    )
+    parser.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
+    if args.resume is not None:
+        raise unported("--resume (checkpoints)", 11)
+    if not os.path.isfile(args.params):
+        print(f"Parameter file '{args.params}' does not exist in the current path.")
+        return 1
+    run_file(args.params, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,332 @@
+"""The Simulation engine (counterpart of particlesmc_tpu/engine/simulation.py,
+its `parallel_moves` branch).
+
+`Simulation(chains, algorithm_list, steps; path, verbose)` + `run()`. One
+step is one sweep of `sweepstep` attempted moves. All chains advance
+together on one device through the checkerboard hyper-sweep, dispatched in
+blocks of `rebin_every` sweeps (one rebin each) between scheduled output
+events.
+
+Outputs and their directory layout:
+- StoreCallbacks    -> <path>/chains/<k>/<name>.dat        rows "step value"
+- StoreAcceptance   -> <path>/moves/<id>/acceptance.dat    rows "step rate"
+- StoreTrajectories -> <path>/chains/<k>/trajectory.<ext>  appended frames
+- StoreLastFrames   -> <path>/chains/<k>/lastframe.<ext>   restart file
+- PrintTimeSteps    -> progress and throughput to stdout
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..io import formats
+from ..io.loader import Chains
+from ..moves import checkerboard as CBK
+from ..moves.base import Move, init_pool_params
+from ..runtime import unported
+from .callbacks import CALLBACK_REGISTRY
+
+FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
+
+OUTPUTS = (
+    "StoreCallbacks", "StoreAcceptance", "StoreTrajectories", "StoreLastFrames",
+    "PrintTimeSteps",
+)
+# outputs of the reference package that later slices port, with their
+# ROADMAP.md queue-1 item
+UNPORTED_OUTPUTS = {
+    "ReplicaExchange": 9,
+    "AdaptiveSigma": 9,
+    "PolicyGradientEstimator": 10,
+    "PolicyGradientUpdate": 10,
+    "StoreParameters": 10,
+    "StoreCheckpoints": 11,
+}
+UNPORTED_CALLBACKS = {"pressure": 12, "chain_correlation": 12}
+
+
+@dataclass
+class Algorithm:
+    """One algorithm_list entry."""
+
+    name: str
+    scheduler: Optional[np.ndarray] = None
+    callbacks: Tuple[Any, ...] = ()
+    fmt: str = "xyz"
+    dependencies: Tuple[str, ...] = ()
+    extra: Dict[str, Any] = field(default_factory=dict)
+
+
+def _normalise_algorithm(entry) -> Algorithm:
+    if isinstance(entry, Algorithm):
+        return entry
+    d = dict(entry)
+    name = d.pop("algorithm")
+    if not isinstance(name, str):
+        name = getattr(name, "__name__", str(name))
+    fmt = d.pop("fmt", "xyz")
+    fmt = FMT_NAMES.get(fmt, fmt)
+    sched = d.pop("scheduler", None)
+    if sched is not None:
+        sched = np.asarray(sched, np.int64)
+    return Algorithm(
+        name=name,
+        scheduler=sched,
+        callbacks=tuple(d.pop("callbacks", ())),
+        fmt=fmt,
+        dependencies=tuple(d.pop("dependencies", ())),
+        extra=d,
+    )
+
+
+def _check_outputs(outputs):
+    for a in outputs:
+        if a.name in UNPORTED_OUTPUTS:
+            raise unported(f"the {a.name} algorithm", UNPORTED_OUTPUTS[a.name])
+        if a.name not in OUTPUTS:
+            raise ValueError(f"Unsupported output algorithm: {a.name}")
+        for cb in a.callbacks:
+            if not isinstance(cb, str):
+                continue
+            if cb in UNPORTED_CALLBACKS:
+                raise unported(f"the {cb} callback", UNPORTED_CALLBACKS[cb])
+            if cb not in CALLBACK_REGISTRY:
+                raise ValueError(f"Unknown callback {cb!r}")
+
+
+class Simulation:
+    """Engine state: batched chains, the hyper-sweep, scheduled outputs."""
+
+    def __init__(
+        self,
+        chains: Chains,
+        algorithm_list: Sequence[Any],
+        steps: int,
+        path: str = "./",
+        verbose: bool = False,
+    ):
+        self.chains = chains
+        self.steps = int(steps)
+        self.path = path
+        self.verbose = verbose
+        self._tput_mark: Optional[Tuple[float, int]] = None  # (wall, step)
+        self.sweep_seconds = 0.0  # wall time of the sweeps alone, outputs excluded
+
+        algos = [_normalise_algorithm(a) for a in algorithm_list]
+        metro = [a for a in algos if a.name == "Metropolis"]
+        if len(metro) != 1:
+            raise ValueError("algorithm_list must contain exactly one Metropolis entry")
+        m = metro[0]
+        self.pool: Tuple[Move, ...] = tuple(m.extra["pool"])
+        self.seed = int(m.extra.get("seed", 0))
+        self.sweepstep = int(m.extra.get("sweepstep", chains.n_particles))
+        if not m.extra.get("parallel_moves", False):
+            raise unported("the sequential kernel (parallel_moves = false)", 8)
+        if int(m.extra.get("spatial_devices", 0)) > 1:
+            raise unported("spatial_devices (one system over several devices)", 13)
+        self.outputs = [a for a in algos if a.name != "Metropolis"]
+        _check_outputs(self.outputs)
+
+        st = chains.states
+        n = chains.n_particles
+        params = chains.list_parameters
+        if params.get("trim", False) not in (False, 0, "0", "off", "false", None):
+            raise unported("candidate compaction (list_parameters.trim)", 14)
+        box0 = st.box[0].double().cpu().numpy()
+        if not torch.equal(st.box, st.box[:1].expand_as(st.box)):
+            raise ValueError(
+                "parallel_moves requires all chains to share one box "
+                "(the checkerboard grid is static)"
+            )
+        cb_spec = CBK.make_cb_spec(box0, chains.table.max_cutoff, n, params.get("cap"))
+        if cb_spec is None:
+            raise ValueError(
+                "box too small for a checkerboard grid (need >= 4 cells per "
+                "dimension at the interaction cutoff)"
+            )
+        self.cb_spec = cb_spec
+        self.mc = CBK.init_cb_state(st, cb_spec, self.seed, len(self.pool))
+        self.pool_params = init_pool_params(self.pool, st.position.dtype, st.position.device)
+        self.rebin_every = max(1, int(params.get("rebin_every", 8)))
+        self.inner = int(params.get("inner", 8))
+        self._blocks: Dict[int, Callable] = {}
+        self._event_times = self._collect_event_times()
+
+    # ------------------------------------------------------------------
+    def _block(self, sweeps: int) -> Callable:
+        """The hyper-sweep of `sweeps` sweeps per rebin, built once per size."""
+        f = self._blocks.get(sweeps)
+        if f is None:
+            f = CBK.build_hyper_sweep_fn(
+                self.cb_spec, self.chains.table, self.chains.n_particles,
+                self.sweepstep, inner=self.inner, sweeps=sweeps, pool=self.pool,
+            )
+            self._blocks[sweeps] = f
+        return f
+
+    def _sync(self):
+        """Wait for the queued work of the device that runs the chains."""
+        if self.mc.system.position.is_cuda:
+            torch.cuda.synchronize(self.mc.system.position.device)
+
+    def _run_chunk(self, n_sweeps: int):
+        t0 = time.perf_counter()
+        nb, rem = divmod(n_sweeps, self.rebin_every)
+        for _ in range(nb):
+            self.mc = self._block(self.rebin_every)(self.mc, self.pool_params)
+        if rem:
+            self.mc = self._block(rem)(self.mc, self.pool_params)
+        self._sync()  # every output event reads the chains anyway
+        self.sweep_seconds += time.perf_counter() - t0
+
+    def _collect_event_times(self) -> np.ndarray:
+        times = {0, self.steps}
+        for a in self.outputs:
+            if a.scheduler is not None:
+                times.update(int(t) for t in a.scheduler)
+        return np.asarray(sorted(t for t in times if 0 <= t <= self.steps), np.int64)
+
+    # ------------------------------------------------------------------
+    def _prepare_dirs(self):
+        for k in range(self.chains.n_chains):
+            os.makedirs(os.path.join(self.path, "chains", str(k + 1)), exist_ok=True)
+        for m in range(len(self.pool)):
+            os.makedirs(os.path.join(self.path, "moves", str(m + 1)), exist_ok=True)
+        # truncate append-mode files from previous runs
+        for a in self.outputs:
+            if a.name == "StoreCallbacks":
+                for cb in a.callbacks:
+                    name = cb if isinstance(cb, str) else cb.__name__
+                    for k in range(self.chains.n_chains):
+                        open(self._chain_file(k, f"{name}.dat"), "w").close()
+            elif a.name == "StoreTrajectories":
+                ext = formats.FORMAT_EXTENSION[a.fmt]
+                for k in range(self.chains.n_chains):
+                    open(self._chain_file(k, f"trajectory{ext}"), "w").close()
+            elif a.name == "StoreAcceptance":
+                for m in range(len(self.pool)):
+                    open(self._move_file(m, "acceptance.dat"), "w").close()
+
+    def _chain_file(self, k: int, name: str) -> str:
+        return os.path.join(self.path, "chains", str(k + 1), name)
+
+    def _move_file(self, m: int, name: str) -> str:
+        return os.path.join(self.path, "moves", str(m + 1), name)
+
+    def _frame_kwargs(self, k: int, t: int, fmt: str):
+        st = self.mc.system
+        kw = dict(
+            species=st.species[k].cpu().numpy() + 1,
+            position=st.position[k].double().cpu().numpy(),
+            box=st.box[k].double().cpu().numpy(),
+            step=t,
+        )
+        if fmt == "xyz":
+            kw["rho"] = float(st.density[k])
+            kw["T"] = float(st.temperature[k])
+        return kw
+
+    def _fire_outputs(self, t: int):
+        for a in self.outputs:
+            if a.scheduler is None or t not in a.scheduler:
+                continue
+            if a.name == "StoreCallbacks":
+                for cb in a.callbacks:
+                    name = cb if isinstance(cb, str) else cb.__name__
+                    fn = CALLBACK_REGISTRY[name] if isinstance(cb, str) else cb
+                    vals = fn(self)
+                    for k in range(self.chains.n_chains):
+                        with open(self._chain_file(k, f"{name}.dat"), "a") as f:
+                            f.write(f"{t} {vals[k]:.12g}\n")
+            elif a.name == "StoreAcceptance":
+                # cumulative rates over the whole chain, summed over chains
+                att = self.mc.attempted.sum(dim=0).cpu().numpy()
+                acc = self.mc.accepted.sum(dim=0).cpu().numpy()
+                for m in range(len(self.pool)):
+                    rate = acc[m] / att[m] if att[m] > 0 else 0.0
+                    with open(self._move_file(m, "acceptance.dat"), "a") as f:
+                        f.write(f"{t} {rate:.12g}\n")
+            elif a.name == "StoreTrajectories":
+                ext = formats.FORMAT_EXTENSION[a.fmt]
+                for k in range(self.chains.n_chains):
+                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt))
+                    with open(self._chain_file(k, f"trajectory{ext}"), "a") as f:
+                        f.write(text)
+            elif a.name == "StoreLastFrames":
+                ext = formats.FORMAT_EXTENSION[a.fmt]
+                for k in range(self.chains.n_chains):
+                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt))
+                    with open(self._chain_file(k, f"lastframe{ext}"), "w") as f:
+                        f.write(text)
+            elif a.name == "PrintTimeSteps":
+                # sweeps/s since the previous print, outputs included
+                self._sync()
+                now = time.perf_counter()
+                if self._tput_mark is not None and t > self._tput_mark[1]:
+                    t0, s0 = self._tput_mark
+                    rate = (t - s0) / max(now - t0, 1e-9)
+                    agg = rate * self.chains.n_chains
+                    print(
+                        f"step {t}/{self.steps}  "
+                        f"{rate:.1f} sweeps/s/chain ({agg:.1f} aggregate)"
+                    )
+                else:
+                    print(f"step {t}/{self.steps}")
+                self._tput_mark = (now, t)
+
+    # ------------------------------------------------------------------
+    def check_health(self):
+        """A bucket overflow skips its block (identity, unbiased) and is
+        counted; raise only if every block was skipped."""
+        if bool(torch.any(self.mc.skipped > 0)) and int(self.mc.attempted.sum()) == 0:
+            raise RuntimeError(
+                "checkerboard: every rebin block overflowed and was skipped "
+                "— increase list_parameters.cap"
+            )
+
+    def write_summary(self):
+        """Human-readable summary in <path>/simulation.log."""
+        st = self.chains.states
+        lines = [
+            f"\tNumber of particles: {st.n_particles}",
+            f"\tDimensions: {st.dim}",
+            f"\tCell: {st.box[0].double().cpu().numpy().tolist()}",
+            f"\tDensity: {float(st.density[0])}",
+            f"\tTemperature: {st.temperature.double().cpu().numpy().tolist()}",
+            "\tNeighbour mode: checkerboard",
+            f"\tChains: {self.chains.n_chains}",
+            f"\tSteps: {self.steps} (sweepstep {self.sweepstep})",
+            f"\tMoves: {[m.action for m in self.pool]}",
+            f"\tDevice: {st.position.device}",
+        ]
+        os.makedirs(self.path, exist_ok=True)
+        with open(os.path.join(self.path, "simulation.log"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        return lines
+
+    def run(self):
+        """Execute `steps` sweeps, firing the scheduled outputs."""
+        self._prepare_dirs()
+        lines = self.write_summary()
+        if self.verbose:
+            print("\n".join(lines))
+        t = 0
+        self._fire_outputs(0)
+        for nxt in self._event_times:
+            if nxt <= t:
+                continue
+            self._run_chunk(int(nxt - t))
+            t = int(nxt)
+            self._fire_outputs(t)
+        self.check_health()
+        return self
+
+
+def run(sim: Simulation) -> Simulation:
+    return sim.run()

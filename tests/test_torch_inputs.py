@@ -1,0 +1,52 @@
+"""Inputs shared by the port's tests, made from a seed with numpy.
+
+This module imports neither JAX nor the JAX package, so that the card-only
+tests (tests/test_torch_cuda.py) can use it on a machine without JAX."""
+
+import numpy as np
+
+SIDE = 2.6  # cell side >= the largest cutoff of the KA and JBB tables (2.5)
+
+
+def lattice(n, d, density, seed):
+    """A cubic lattice of n sites at `density`, jittered by 3% of the
+    spacing; 20% of the particles are species 2, the rest species 1."""
+    rng = np.random.default_rng(seed)
+    L = (n / density) ** (1 / d)
+    per = int(np.ceil(n ** (1 / d)))
+    a = L / per
+    grid = np.stack(np.meshgrid(*[np.arange(per) * a + a / 2] * d, indexing="ij"), -1)
+    pos = grid.reshape(-1, d)[:n] + rng.uniform(-0.03 * a, 0.03 * a, (n, d))
+    species = (rng.random(n) < 0.2).astype(np.int64) + 1
+    return pos, species
+
+
+def make_inputs(d, cap, inner, n_species, chains=2, A=4, seed=0):
+    """Random packed lanes of A cells per chain for the colour substep: each
+    centre cell and its 3^d - 1 neighbours hold a random number of particles
+    placed uniformly in their cube, empty lanes carry species -1. Cell 0 is
+    full and cell A - 1 empty in every chain."""
+    rng = np.random.default_rng(seed)
+    offsets = [np.zeros(d, int)] + [
+        np.array(t) for t in np.ndindex(*(3,) * d) if any(np.array(t) != 1)
+    ]
+    offsets = [o if i == 0 else o - 1 for i, o in enumerate(offsets)]
+    LP = len(offsets) * cap
+    lo = rng.uniform(0.0, 3 * SIDE, (d, A))
+    hi = lo + SIDE
+    pos = np.zeros((chains, d, A, LP))
+    sp = -np.ones((chains, A, LP))
+    for b in range(chains):
+        for a in range(A):
+            for blk, off in enumerate(offsets):
+                occ = cap if (blk == 0 and a == 0) else rng.integers(0, cap + 1)
+                if blk == 0 and a == A - 1:
+                    occ = 0
+                lanes = slice(blk * cap, blk * cap + occ)
+                low = lo[:, a] + off * SIDE
+                pos[b, :, a, lanes] = rng.uniform(low, low + SIDE, (occ, d)).T
+                sp[b, a, lanes] = rng.integers(0, n_species, occ)
+    up = rng.uniform(0.0, 1.0 - 1e-7, (chains, inner, A))
+    dl = rng.normal(0.0, 0.4, (chains, inner, d, A))
+    thr = -1.3 * np.log(rng.uniform(1e-300, 1.0, (chains, inner, A)))
+    return pos, sp, up, dl, thr, lo, hi
