@@ -2,15 +2,19 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from the sources in this checkout, holds it against
-its plain PyTorch version at the shapes of the main path, then drives the
-main path through the two entry points a user calls: the library (N = 10,000
+Builds the CUDA kernel from the sources in this checkout (printing ptxas's
+registers and spills of each instantiation), holds it against its plain
+PyTorch version at the shapes of the main path (the potential variant for
+the table's kinds, and the generic variant), then drives the main path
+through the two entry points a user calls: the library (N = 10,000
 Kob-Andersen LJ in 3D, 256 chains, mixed precision, 48 sub-moves per cell
 and colour, 16 sweeps per rebin) and the TOML CLI on a shortened copy of
 examples/movie/params.toml (2D JBB, N = 1290, float64), and holds the kernel
 against its plain version a second time at the CLI path's shapes, on the CLI
-run's final state. Every phase prints one JSON line; any failure raises and the exit code is not 0. The last line
-is {"ok": true, "device": {...}}. Without CUDA, or without the package beside
+run's final state. It then prints the launcher's cells per block and shared
+memory at both paths' shapes. Every phase prints one JSON line; any failure
+raises and the exit code is not 0. The last line is
+{"ok": true, "device": {...}}. Without CUDA, or without the package beside
 it, the script fails before printing a result.
 """
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -90,6 +95,9 @@ def phase_device():
     return name, smi
 
 
+VARIANT_NAMES = {0: "generic", 1: "inverse_power", 2: "lennard_jones", 3: "smooth_lj"}
+
+
 def phase_build():
     from particlesmc_tpu_torch.moves import cb_cuda
 
@@ -99,7 +107,17 @@ def phase_build():
     build_s = time.perf_counter() - t0
     log = (lib.parent / "build.log").read_text()
     ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "cached": cached, "library": str(lib.relative_to(ROOT)), "ptxas": ptxas})
+    # registers and spills of each instantiation <dtype, d, variant>
+    by_kernel, current = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"disp_substep_kernelI([fd])Li(\d)ELi(\d)E", ln)
+        if m and ("Compiling entry" in ln or "Function properties" in ln):
+            dt = "f32" if m.group(1) == "f" else "f64"
+            current = f"{dt} d={m.group(2)} {VARIANT_NAMES[int(m.group(3))]}"
+        elif current and ("registers" in ln or "spill" in ln):
+            by_kernel.setdefault(current, []).append(ln.split(":", 1)[-1].strip())
+    emit({"phase": "build", "seconds": build_s, "cached": cached, "library": str(lib.relative_to(ROOT)),
+          "ptxas": ptxas, "ptxas_by_kernel": by_kernel})
 
 
 def bench_system(device, seed=0):
@@ -170,7 +188,12 @@ def needed_ops(args, acc):
     for every valid non-mover lane, two r^2 (3d - 1 each), two cutoff
     compares, the du subtract and its accumulate, and the potential's body
     (body_ops) for each of r^2_old and r^2_new that lies within the pair's
-    cutoff."""
+    cutoff.
+
+    Also returns what the kernel's design does with these inputs: a warp
+    walks the centre lanes and the compacted valid neighbour lanes, 32 lanes
+    a pass, two passes an iteration, and a pass runs the potential's body
+    when one of its lanes lies within the mover's row's largest cutoff."""
     packed_pos, packed_sp, up, dl, _, lo, hi, tab = args
     B, d, A, LP = packed_pos.shape
     inner = up.shape[1]
@@ -179,14 +202,21 @@ def needed_ops(args, acc):
     dev = packed_pos.device
     body = body_ops(tab).reshape(-1)
     rcut2 = tab[4].reshape(-1)
+    row_max = tab[4].amax(dim=-1)  # [S]
     live = (tab[0] != 0).reshape(-1)
     pos = packed_pos.clone()
     valid = packed_sp >= 0
     sp = torch.clamp_min(packed_sp, 0).long()
     occ = valid[..., :cap].sum(dim=-1)
     lanes = torch.arange(LP, device=dev)
+    # each lane's position in the kernel's compacted order, and its pass
+    nb_valid = valid[..., cap:].long()
+    packed_idx = torch.cat([lanes[:cap].expand(B, A, cap), cap + torch.cumsum(nb_valid, -1) - 1], -1)
+    pass_of = packed_idx // 32
+    passes_per_cell = 2 * -(-(cap + nb_valid.sum(-1)) // 64)  # [B, A]
     per_lane = 2 * (3 * d - 1) + 2 + 2
     ops = torch.zeros((), dtype=torch.int64, device=dev)
+    counts = torch.zeros(5, dtype=torch.int64, device=dev)  # sub-moves, passes, body passes, lanes, in range
     for k in range(inner):
         r = torch.floor(up[:, k] * occ.to(pos.dtype)).long().clamp(0, LP - 1)  # [B, A]
         x_a = torch.gather(pos, 3, r[:, None, :, None].expand(B, d, A, 1))[..., 0]
@@ -194,15 +224,33 @@ def needed_ops(args, acc):
         in_cell = (occ > 0) & ((x_new >= lo) & (x_new < hi)).all(dim=1)
         pick = lanes == r[..., None]
         need = valid & ~pick & in_cell[..., None]
-        pair = torch.gather(sp, 2, r[..., None]) * S + sp
+        s_a = torch.gather(sp, 2, r[..., None])
+        pair = s_a * S + sp
         r2o = ((pos - x_a[..., None]) ** 2).sum(dim=1)
         r2n = ((pos - x_new[..., None]) ** 2).sum(dim=1)
         near = need & live[pair]
+        in_o = near & (r2o <= rcut2[pair])
+        in_n = near & (r2n <= rcut2[pair])
         ops += per_lane * need.sum()
-        ops += (body[pair] * ((near & (r2o <= rcut2[pair])).long() + (near & (r2n <= rcut2[pair])).long())).sum()
+        ops += (body[pair] * (in_o.long() + in_n.long())).sum()
+        rm = row_max[s_a]
+        enter = (need & ((r2o <= rm) | (r2n <= rm))).long()
+        body_pass = torch.zeros((B, A, LP // 32 + 2), dtype=torch.int64, device=dev)
+        body_pass.scatter_reduce_(2, pass_of, enter, "amax")
+        counts += torch.stack([
+            in_cell.sum(), (passes_per_cell * in_cell).sum(), body_pass.sum(),
+            2 * need.sum(), in_o.sum() + in_n.sum(),
+        ])
         moved = (pick & acc[..., k].bool()[..., None])[:, None]
         pos = torch.where(moved, x_new[..., None], pos)
-    return float(ops)
+    sub_moves, passes, body_passes, pair_terms, in_range = (int(c) for c in counts)
+    design = {
+        "in_cell_sub_moves": sub_moves,
+        "passes_per_sub_move": passes / max(1, sub_moves),
+        "body_pass_share": body_passes / max(1, passes),
+        "pair_terms_in_range_share": in_range / max(1, pair_terms),
+    }
+    return float(ops), design
 
 
 def bound_ms(args, outs, dtype):
@@ -210,11 +258,11 @@ def bound_ms(args, outs, dtype):
     input read once, each output written once) over the HBM rate and the
     operations these inputs need (needed_ops) over the peak rate of their
     type."""
-    ops = needed_ops(args, outs[2])
+    ops, design = needed_ops(args, outs[2])
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
     t_ops = ops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, design
 
 
 # booked ΔE of a (chain, cell): kernel against plain version, relative to
@@ -223,13 +271,14 @@ def bound_ms(args, outs, dtype):
 BOOKED_RTOL = {torch.float64: 1e-12, torch.float32: 5e-4}
 
 
-def compare(args):
-    """The kernel against its plain version on `args`: asserts agreement and
-    returns the errors, both times and the bound."""
+def compare(args, kinds, time_plain=True):
+    """The kernel's variant for `kinds` against its plain version on `args`:
+    asserts agreement and returns the errors, both times (the plain one only
+    if `time_plain`) and the bound."""
     from particlesmc_tpu_torch.moves import cb_cuda
 
     dtype = args[0].dtype
-    k_out = cb_cuda.disp_substep(*args)
+    k_out = cb_cuda.disp_substep(*args, kinds=kinds)
     p_out = cb_cuda.disp_substep_plain(*args)
     torch.cuda.synchronize()
     acc_k = k_out[2].sum(dim=-1)
@@ -251,24 +300,31 @@ def compare(args):
         assert max_err <= 1e-5, f"f32 positions differ by {max_err}"
     assert booked_rel <= BOOKED_RTOL[dtype], f"booked energy differs by {booked_rel} relative"
     assert n_acc > 0, "no sub-move was accepted"
-    kernel_ms = _time_ms(lambda: cb_cuda.disp_substep(*args), runs=20, warmup=3)
-    plain_ms = _time_ms(lambda: cb_cuda.disp_substep_plain(*args), runs=3)
-    b_ms, b_by, ops = bound_ms(args, k_out, dtype)
+    kernel_ms = _time_ms(lambda: cb_cuda.disp_substep(*args, kinds=kinds), runs=20, warmup=3)
+    plain_ms = _time_ms(lambda: cb_cuda.disp_substep_plain(*args), runs=3) if time_plain else None
+    b_ms, b_by, ops, design = bound_ms(args, k_out, dtype)
     return dict(
+        variant=VARIANT_NAMES[cb_cuda.kernel_variant(kinds)],
         kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ops=ops,
         max_abs_err=max_err, booked_max_abs_err=booked_err, booked_max_rel_err=booked_rel,
-        accept_count_differ_frac=differ_frac, accepted=n_acc,
+        accept_count_differ_frac=differ_frac, accepted=n_acc, lane_passes=design,
     )
 
 
 def _shapes(args):
     B, d, A, LP = args[0].shape
-    return {"B": B, "d": d, "A": A, "cap": LP // 3**d, "LP": LP, "inner": args[2].shape[1]}
+    return {"B": B, "d": d, "A": A, "cap": LP // 3**d, "LP": LP, "inner": args[2].shape[1],
+            "S": args[-1].shape[-1]}
+
+
+# every kind: the kernel's generic variant, which any table may take
+ALL_KINDS = (0, 1, 2, 3)
 
 
 def phase_kernel_vs_plain(device):
     """The kernel against its plain version at the library path's shapes,
-    in float64 and float32."""
+    in float64 and float32: the variant for the table's kinds, and the
+    generic variant."""
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
@@ -277,15 +333,19 @@ def phase_kernel_vs_plain(device):
     table = T.KobAndersen(torch.float64, device)
     spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, N, CAP)
     args64 = substep_inputs(st, table, spec, INNER, SIGMA)
+    kinds = T.kinds_present(table)
     cb_cuda.disp_substep.launches = 0
     out = {}
     for dtype in (torch.float64, torch.float32):
-        out["f64" if dtype == torch.float64 else "f32"] = compare(tuple(t.to(dtype) for t in args64))
+        key = "f64" if dtype == torch.float64 else "f32"
+        args = tuple(t.to(dtype) for t in args64)
+        out[key] = compare(args, kinds)
+        out[key + "_generic"] = compare(args, ALL_KINDS, time_plain=False)
     launches = cb_cuda.disp_substep.launches
     cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     emit({"phase": "kernel_vs_plain", "path": "library", "shapes": _shapes(args64),
           "launches": launches, **out})
-    return out
+    return out, _shapes(args64)
 
 
 def profile_block(run_block):
@@ -445,15 +505,34 @@ def phase_cli_kernel_vs_plain(sim):
     float64."""
     from particlesmc_tpu_torch.moves import cb_cuda
 
+    from particlesmc_tpu_torch.models.tables import kinds_present
+
     sigma = dict(sim.pool[0].params)["sigma"]
     args = substep_inputs(sim.mc.system, sim.chains.table, sim.cb_spec, sim.inner, sigma)
     cb_cuda.disp_substep.launches = 0
-    out = compare(args)
+    out = compare(args, kinds_present(sim.chains.table))
     launches = cb_cuda.disp_substep.launches
     cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     emit({"phase": "kernel_vs_plain", "path": "cli", "shapes": _shapes(args),
           "launches": launches, "f64": out})
-    return out
+    return out, _shapes(args)
+
+
+def phase_launch_plan(paths):
+    """The launcher's cells (warps) per block and dynamic shared memory per
+    block at each path's shapes."""
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    plans = []
+    for path, dtype, sh in paths:
+        cpb, smem = cb_cuda.launch_plan(dtype, sh["d"], sh["S"], sh["LP"], sh["inner"])
+        plans.append({
+            "path": path, "dtype": str(dtype).replace("torch.", ""), "cells_per_block": cpb,
+            "threads_per_block": 32 * cpb, "smem_bytes_per_block": smem,
+            "grid": [-(-sh["A"] // cpb), sh["B"]],
+        })
+    emit({"phase": "launch_plan", "plans": plans})
+    return plans
 
 
 def main() -> int:
@@ -471,12 +550,17 @@ def main() -> int:
     device = torch.device("cuda")
     name, smi = phase_device()
     phase_build()
-    kv = phase_kernel_vs_plain(device)
+    kv, lib_shapes = phase_kernel_vs_plain(device)
     launches = phase_library(device)
     sim, cli_launches = phase_cli(device)
-    kc = phase_cli_kernel_vs_plain(sim)
+    kc, cli_shapes = phase_cli_kernel_vs_plain(sim)
+    phase_launch_plan([
+        ("library", torch.float32, lib_shapes),
+        ("library", torch.float64, lib_shapes),
+        ("cli", torch.float64, cli_shapes),
+    ])
     f32 = kv["f32"]
-    keep = ("kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "booked_max_rel_err")
+    keep = ("variant", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "booked_max_rel_err")
     emit({"kernels": [{
         "name": "cb_disp_substep",
         "route": "cuda",
@@ -489,8 +573,11 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": None,
+        "design": "warp per cell, compacted neighbour lanes, kind-specialised",
+        "variant": {"library": f32["variant"], "cli": kc["variant"]},
         "dtype": "float32",
         "f64": {k: kv["f64"][k] for k in keep},
+        "generic_variant_ms": {"f32": kv["f32_generic"]["kernel_ms"], "f64": kv["f64_generic"]["kernel_ms"]},
         "cli_f64": {"launches": cli_launches, **{k: kc[k] for k in keep}},
         "card": smi,
     }]})

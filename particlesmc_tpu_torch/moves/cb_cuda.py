@@ -9,18 +9,22 @@ propose x + dl, reject an empty cell or a proposal outside [lo, hi),
 ΔE = Σ over the valid non-mover lanes of u(r²_new) − u(r²_old), accept if
 ΔE < thr (thr = −T log u), book ΔE if finite, move the lane.
 
-What bounds it on an H100: the pair evaluations. A launch does at most
-B·A·inner·LP·2 of them (1.36e9 at the N = 10,000, 256-chain main path). The
-data needs fewer: only the valid lanes of proposals that stay in their
-cell, each with its r², compare and accumulate, and the potential's body
-only within the cutoff (about 8.5e9 operations in all there), while it
-reads each input lane once (about B·A·LP·(d+1) elements), so it is bound by
-operations, not bytes.
-The design keeps all of a cell's lanes and the pair table in shared memory
-for the whole inner loop (one block per (chain, cell), 256 threads), so
-device memory is read once per launch; each sub-move is one block-wide
-reduction. Making it fast (one warp per cell, several cells per block,
-reading the padded grid directly, float32 tuning) is later work.
+What bounds it on an H100: instructions. A launch reads each input once
+(about B·A·LP·(d+1) elements), but does about 8.5e9 operations on them at
+the N = 10,000, 256-chain main path: for every valid non-mover lane of an
+in-cell proposal two r², the cutoff tests and, within the cutoff, the
+potential's body. Each sub-move depends on the one before, so the latency
+of a sub-move's steps counts too.
+The design gives each (chain, cell) one warp for the whole inner loop, four
+cells to a block. The warp copies its cell to shared memory once: centre
+lanes verbatim, neighbour lanes compacted to the valid ones (about 60% of
+them at the bench point), its draws for every sub-move. The inner loop reads
+no device memory and crosses no block barrier: a warp-wide shuffle sum
+replaces the block reduction. The potential is specialised at compile time
+on the kinds in the table (`kinds`, from models/tables.py::kinds_present):
+one variant each for LJ, smooth LJ and inverse power, and a generic one for
+any mix; it reads the mover's row of the table from shared memory and takes
+sigma²/r² as sigma² times a reciprocal.
 
 The wrapper launches the kernel for CUDA tensors and uses the plain version
 only for CPU tensors; it never falls back. The kernel is built with nvcc at
@@ -39,7 +43,13 @@ from pathlib import Path
 
 import torch
 
-from ..models.potentials import PAIR_FIELDS, pair_potential
+from ..models.potentials import (
+    KIND_INVERSE_POWER,
+    KIND_LENNARD_JONES,
+    KIND_SMOOTH_LJ,
+    PAIR_FIELDS,
+    pair_potential,
+)
 from ..models.tables import PairTable, _Params
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -55,6 +65,28 @@ def pack_table(table: PairTable, dtype) -> torch.Tensor:
     """The kernel's pair table: [9, S, S] in `dtype`, fields in PAIR_FIELDS
     order (kind and ipl_n stored as exact small floats)."""
     return torch.stack([getattr(table, f).to(dtype) for f in PAIR_FIELDS]).contiguous()
+
+
+# the kernel's potential variants: a table of one kind gets that kind's
+# variant, any other table the generic one
+GENERIC_VARIANT = 0
+_KIND_VARIANTS = {
+    (KIND_INVERSE_POWER,): KIND_INVERSE_POWER,
+    (KIND_LENNARD_JONES,): KIND_LENNARD_JONES,
+    (KIND_SMOOTH_LJ,): KIND_SMOOTH_LJ,
+}
+
+
+def kernel_variant(kinds) -> int:
+    """The kernel's potential variant for a sorted tuple of the kinds present
+    in the table (models/tables.py::kinds_present)."""
+    return _KIND_VARIANTS.get(tuple(kinds), GENERIC_VARIANT)
+
+
+def table_kinds(table: torch.Tensor):
+    """Sorted tuple of the kinds in a packed table [9, S, S]. Reads the table
+    on the host: a caller that launches many times computes it once."""
+    return tuple(sorted({int(k) for k in table[PAIR_FIELDS.index("kind")].reshape(-1).tolist()}))
 
 
 def _nvcc() -> str:
@@ -94,11 +126,30 @@ def build_library() -> Path:
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cb_disp_substep.argtypes = [i, i] + [p] * 8 + [i] * 6 + [p] * 4
+    lib.cb_disp_substep.argtypes = [i, i] + [p] * 8 + [i] * 7 + [p] * 4
     lib.cb_disp_substep.restype = i
+    lib.cb_disp_substep_plan.argtypes = [i] * 5 + [p, p]
+    lib.cb_disp_substep_plan.restype = i
     lib.cb_error_string.argtypes = [i]
     lib.cb_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib, code, what):
+    if code != 0:
+        raise RuntimeError(f"{what} failed: {lib.cb_error_string(code).decode()}")
+
+
+def launch_plan(dtype, d: int, S: int, LP: int, inner: int):
+    """The launcher's choice for these shapes on the current card: (cells per
+    block, dynamic shared memory bytes of a block)."""
+    lib = _library()
+    cpb, smem = ctypes.c_int(), ctypes.c_longlong()
+    code = lib.cb_disp_substep_plan(
+        int(dtype == torch.float64), d, S, LP, inner, ctypes.byref(cpb), ctypes.byref(smem)
+    )
+    _raise_on(lib, code, "cb_disp_substep_plan")
+    return cpb.value, smem.value
 
 
 def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
@@ -121,6 +172,8 @@ def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
         raise TypeError(f"disp_substep takes float32 or float64, not {packed_pos.dtype}")
     if B > 65535:
         raise ValueError(f"disp_substep launches at most 65535 chains, got {B}")
+    if S > 127:
+        raise ValueError(f"disp_substep keeps species in int8: at most 127 species, got {S}")
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
@@ -133,14 +186,17 @@ def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
     return B, d, A, LP, inner, S
 
 
-def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
+def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=None):
     """Run the `inner` displacement sub-moves of one colour substep.
 
     Takes packed_pos [B, d, A, LP], packed_sp [B, A, LP], up/thr
-    [B, inner, A], dl [B, inner, d, A], lo/hi [d, A] and the packed pair
-    table [9, S, S] (pack_table); returns centre [B, d, A, cap], booked
-    [B, A] and acc [B, A, inner] (int32). CUDA tensors launch the kernel,
-    CPU tensors run disp_substep_plain; anything else raises."""
+    [B, inner, A] (up in [0, 1)), dl [B, inner, d, A], lo/hi [d, A] and the
+    packed pair table [9, S, S] (pack_table); returns centre [B, d, A, cap],
+    booked [B, A] and acc [B, A, inner] (int32). `kinds` is the sorted tuple
+    of the potential kinds in the table (models/tables.py::kinds_present) and
+    picks the kernel's variant; None reads it from `table`, a host sync per
+    call. CUDA tensors launch the kernel, CPU tensors run disp_substep_plain;
+    anything else raises."""
     if packed_pos.device.type == "cpu":
         return disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table)
     if packed_pos.device.type != "cuda":
@@ -152,20 +208,18 @@ def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
     centre = torch.empty((B, d, A, cap), dtype=dt, device=dev)
     booked = torch.empty((B, A), dtype=dt, device=dev)
     acc = torch.empty((B, A, inner), dtype=torch.int32, device=dev)
+    variant = kernel_variant(table_kinds(table) if kinds is None else kinds)
     lib = _library()
     with torch.cuda.device(dev):  # the runtime launches on its current device
         code = lib.cb_disp_substep(
             int(dt == torch.float64), d,
             packed_pos.data_ptr(), packed_sp.data_ptr(), up.data_ptr(), dl.data_ptr(),
             thr.data_ptr(), lo.data_ptr(), hi.data_ptr(), table.data_ptr(),
-            S, B, A, LP, cap, inner,
+            S, B, A, LP, cap, inner, variant,
             centre.data_ptr(), booked.data_ptr(), acc.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    if code != 0:
-        raise RuntimeError(
-            f"cb_disp_substep launch failed: {lib.cb_error_string(code).decode()}"
-        )
+    _raise_on(lib, code, "cb_disp_substep launch")
     disp_substep.launches += 1
     return centre, booked, acc
 

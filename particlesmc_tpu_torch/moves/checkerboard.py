@@ -36,7 +36,7 @@ import torch
 
 from ..core.geometry import fold_back
 from ..core.state import SystemState
-from ..models.tables import PairTable
+from ..models.tables import PairTable, kinds_present
 from ..runtime import unported
 from .cb_cuda import disp_substep, pack_table
 
@@ -383,6 +383,7 @@ def build_hyper_sweep_fn(
     _check_pool(pool)
     n_moves = len(pool)
     schedule = _slot_schedule(pool, C, inner)
+    kinds = kinds_present(table)  # once here: it reads the table on the host
     # sub-move slots of each move within a colour, for the counters
     slots_of = [
         [[i for i in range(inner) if int(schedule[ci][i]) == m] for m in range(n_moves)]
@@ -435,7 +436,7 @@ def build_hyper_sweep_fn(
                 centre, booked, acc_k = disp_substep(
                     packed_pos, packed_sp,
                     up_r[:, ci].contiguous(), dl_r[:, ci].contiguous(),
-                    thr_r[:, ci].contiguous(), lo, hi, tab,
+                    thr_r[:, ci].contiguous(), lo, hi, tab, kinds=kinds,
                 )
                 write_back(padded, spec, c, centre, box)
                 energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)

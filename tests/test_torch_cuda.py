@@ -19,7 +19,7 @@ from particlesmc_tpu_torch.moves import base as MB
 from particlesmc_tpu_torch.moves import cb_cuda
 from particlesmc_tpu_torch.moves import checkerboard as CB
 
-from .test_torch_inputs import lattice, make_inputs
+from .test_torch_inputs import lattice, make_inputs, mixed_table
 
 pytestmark = pytest.mark.cuda
 
@@ -31,16 +31,33 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("d,cap,model", [(2, 6, "JBB"), (3, 4, "KobAndersen"), (3, 32, "BHHP")])
+# (d, cap, model, A, inner): the first three at 8 cells and 3 sub-moves; then
+# a ragged last block (A = 7 is not a multiple of the 4 cells of a block), the
+# CLI path's cap and inner (2D, cap 23, inner 8), a full 32-lane centre cell
+# with 48 sub-moves, and a table with every kind and a kind-0 pair
+KERNEL_CASES = [
+    (2, 6, "JBB", 8, 3),
+    (3, 4, "KobAndersen", 8, 3),
+    (3, 32, "BHHP", 8, 3),
+    (3, 4, "KobAndersen", 7, 3),
+    (2, 23, "JBB", 36, 8),
+    (3, 32, "KobAndersen", 8, 48),
+    (3, 6, "mixed", 7, 8),
+]
+
+
+@pytest.mark.parametrize("d,cap,model,A,inner", KERNEL_CASES)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain(cuda, d, cap, model, dtype):
-    table = getattr(TT, model)(dtype, cuda)
+@pytest.mark.parametrize("kinds_given", [True, False])
+def test_kernel_matches_plain(cuda, d, cap, model, A, inner, dtype, kinds_given):
+    table = mixed_table(dtype, cuda) if model == "mixed" else getattr(TT, model)(dtype, cuda)
     args = [
         torch.tensor(x, dtype=dtype, device=cuda)
-        for x in make_inputs(d, cap, 3, table.n_species, chains=3, A=8, seed=cap)
+        for x in make_inputs(d, cap, inner, table.n_species, chains=3, A=A, seed=cap)
     ] + [cb_cuda.pack_table(table, dtype)]
+    kinds = TT.kinds_present(table) if kinds_given else None
     launches = cb_cuda.disp_substep.launches
-    k_pos, k_booked, k_acc = cb_cuda.disp_substep(*args)
+    k_pos, k_booked, k_acc = cb_cuda.disp_substep(*args, kinds=kinds)
     assert cb_cuda.disp_substep.launches == launches + 1
     p_pos, p_booked, p_acc = cb_cuda.disp_substep_plain(*args)
     torch.cuda.synchronize()
@@ -55,6 +72,32 @@ def test_kernel_matches_plain(cuda, d, cap, model, dtype):
     booked_gap = torch.where(same, (k_booked - p_booked).abs(), torch.zeros_like(k_booked))
     assert float(booked_gap.max()) <= 1e3 * tol * (1 + float(p_booked.abs().max()))
     assert int(k_acc.sum()) > 0
+    assert int(k_acc[:, A - 1].sum()) == 0  # the empty cell never accepts
+
+
+def test_launch_plan_and_refusals(cuda):
+    """The launcher packs 4 cells per block at the main path's shapes; a cell
+    whose lanes do not fit in shared memory, and a potential variant the
+    kernel does not have, raise instead of running."""
+    for dtype in (torch.float32, torch.float64):
+        cpb, smem = cb_cuda.launch_plan(dtype, 3, 2, 864, 48)
+        assert cpb == 4 and smem <= 232448
+    d, cap, inner = 3, 400, 2  # 10,800 lanes: one cell needs ~260 KB at f64
+    args = [
+        torch.tensor(x, device=cuda)
+        for x in make_inputs(d, cap, inner, 2, chains=1, A=1, seed=0)
+    ] + [cb_cuda.pack_table(TT.KobAndersen(torch.float64, cuda), torch.float64)]
+    launches = cb_cuda.disp_substep.launches
+    with pytest.raises(RuntimeError, match="shared memory"):
+        cb_cuda.disp_substep(*args)
+    args = [
+        torch.tensor(x, device=cuda) for x in make_inputs(2, 4, 2, 2, chains=1, A=4, seed=0)
+    ] + [cb_cuda.pack_table(TT.KobAndersen(torch.float64, cuda), torch.float64)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(cb_cuda._KIND_VARIANTS, (TT.KIND_LENNARD_JONES,), 7)
+        with pytest.raises(RuntimeError, match="variant"):
+            cb_cuda.disp_substep(*args, kinds=(TT.KIND_LENNARD_JONES,))
+    assert cb_cuda.disp_substep.launches == launches
 
 
 def test_hyper_sweep_cuda_matches_cpu(cuda):

@@ -50,3 +50,19 @@ def make_inputs(d, cap, inner, n_species, chains=2, A=4, seed=0):
     dl = rng.normal(0.0, 0.4, (chains, inner, d, A))
     thr = -1.3 * np.log(rng.uniform(1e-300, 1.0, (chains, inner, A)))
     return pos, sp, up, dl, thr, lo, hi
+
+
+def mixed_table(dtype, device):
+    """A 3-species pair table of the port with every potential kind: LJ,
+    inverse power and smooth LJ pairs, and one pair without interaction
+    (kind 0). All cutoffs are below SIDE."""
+    from particlesmc_tpu_torch.models import tables as TT
+
+    lj, ipl, slj = TT.lennard_jones, TT.soft_spheres, TT.smooth_lennard_jones
+    e01, e02, e12 = ipl(1.0, 1.1, 12), TT._base_entry(), lj(1.5, 0.8)
+    entries = [
+        [lj(1.0, 1.0), e01, e02],
+        [e01, slj(0.5, 0.9), e12],
+        [e02, e12, slj(0.75, 0.94)],
+    ]
+    return TT.build_pair_table(entries, dtype, device)
