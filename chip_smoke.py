@@ -11,11 +11,27 @@ Kob-Andersen LJ in 3D, 256 chains, mixed precision, 48 sub-moves per cell
 and colour, 16 sweeps per rebin) and the TOML CLI on a shortened copy of
 examples/movie/params.toml (2D JBB, N = 1290, float64), and holds the kernel
 against its plain version a second time at the CLI path's shapes, on the CLI
-run's final state. It then prints the launcher's cells per block and shared
-memory at both paths' shapes. Every phase prints one JSON line; any failure
-raises and the exit code is not 0. The last line is
-{"ok": true, "device": {...}}. Without CUDA, or without the package beside
-it, the script fails before printing a result.
+run's final state. Then the other checkerboard paths, each with its own
+assertions and a profiled block split into kernel, non-kernel sub-moves,
+other glue and idle:
+- cli_swap: the lj-mixture dense point (N = 4096, x = 0.5, T = 1.2183,
+  rho = 0.8, rcut 4, cap 192, 8 chains, mixed precision) through the CLI
+  with Displacement + DiscreteSwap/DoubleUniform, then the kernel against
+  its plain version at that path's shapes (192 centre lanes);
+- library_energy_bias: the pgmc-ka2d system (2D JBB, N = 1290, 10 chains,
+  float64) with Displacement + two EnergyBias swaps at fixed theta, then
+  the kernel against its plain version at that path's shapes (every run
+  length its schedule launches) and one sweep of the mixed pool through
+  the kernel against the same sweep through the plain version;
+- cli_smart: examples/movie/params.toml with SmartGaussian (no kernel);
+- library_molecular: molecule.npz (1000 trimers, N = 3000) cloned to 16
+  chains with Displacement + MoleculeFlip (no kernel).
+It then prints the launcher's cells per block and shared memory at each
+kernel path's shapes. Every phase prints one JSON line, and a `wall_seconds`
+line gives each phase's wall time; any failure raises and the exit code is
+not 0. The last line is {"ok": true, "device": {...}}.
+Without CUDA, or without the package beside it, the script fails before
+printing a result.
 """
 
 from __future__ import annotations
@@ -153,7 +169,7 @@ def substep_inputs(st, table, spec, inner, sigma, seed=1):
     planes, _, _, _ = CB.rebin(st, spec, rand(B, d) * st.box)
     padded = CB.pad_grid(planes, spec, st.box)
     c = CB.colours(d)[0]
-    packed_pos, packed_sp = CB.extract_colour(padded, spec, c)
+    packed_pos, packed_sp, _ = CB.extract_colour(padded, spec, c)
     lo, hi = CB.cell_bounds(spec, st.box[0], c)
     up = rand(B, inner, A) * (1.0 - 1e-7)
     dl = torch.randn((B, inner, d, A), generator=g, dtype=dtype, device=device) * sigma
@@ -349,15 +365,22 @@ def phase_kernel_vs_plain(device):
 
 
 def profile_block(run_block):
-    """Device time of one block by torch.profiler: the kernel's share, the
-    PyTorch glue's, and the device's idle share of the block's span."""
+    """Device time of one block by torch.profiler: the kernel's, the
+    sub-moves' that are not the kernel's (by their profiler range, per
+    kind), the rest of the PyTorch glue's, and the device's idle share of
+    the block's span; and the host's stream synchronisations in it."""
     from torch.profiler import ProfilerActivity, profile
+
+    from particlesmc_tpu_torch.moves.checkerboard import SUBMOVE_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_block()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    # the ranges' own annotations on the device timeline are not device work
+    evs = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.name.startswith(SUBMOVE_RANGE)]
     assert evs, "the profiler saw no device activity"
     by_name = {}
     for e in evs:
@@ -365,12 +388,52 @@ def profile_block(run_block):
     span = (max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)) / 1e3
     busy = sum(by_name.values())
     kernel = sum(v for k, v in by_name.items() if "disp_substep_kernel" in k)
+    submoves, ranges = {}, {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SUBMOVE_RANGE):
+            kind = e.name[len(SUBMOVE_RANGE):]
+            submoves[kind] = submoves.get(kind, 0.0) + e.device_time_total / 1e3
+            ranges[kind] = ranges.get(kind, 0) + 1
+    sub = sum(submoves.values())
+    syncs = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                and e.name == "cudaStreamSynchronize")
     top = sorted(((v, k) for k, v in by_name.items() if "disp_substep_kernel" not in k), reverse=True)
     return {
         "span_ms": span, "device_busy_ms": busy, "idle_share": 1.0 - busy / span,
-        "kernel_ms": kernel, "glue_ms": busy - kernel, "device_launches": len(evs),
-        "top_glue": [[k[:80], v] for v, k in top[:5]],
+        "kernel_ms": kernel, "kernel_share": kernel / span,
+        "submove_ms": submoves, "submove_calls": ranges, "submove_share": sub / span,
+        "glue_ms": busy - kernel - sub, "glue_share": (busy - kernel - sub) / span,
+        "device_launches": len(evs), "stream_syncs": syncs, "top_glue": [[k[:80], v] for v, k in top[:5]],
     }
+
+
+def gaussian_runs(pool, C, inner):
+    """Lengths of the maximal runs of consecutive SimpleGaussian slots in
+    each colour's row of the port's static slot schedule, counted here from
+    the row's move indices (not by the port's own cut into kernel runs)."""
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    gauss = [mv.action == "displacement" and mv.policy == "gaussian" for mv in pool]
+    runs = []
+    for row in CB._slot_schedule(pool, C, inner).tolist():
+        lengths, n = [], 0
+        for m in row + [None]:
+            if m is not None and gauss[m]:
+                n += 1
+            elif n:
+                lengths.append(n)
+                n = 0
+        runs.append(lengths)
+    return runs
+
+
+def expected_launches(pool, spec, inner, sweepstep, sweeps):
+    """Kernel launches of `sweeps` sweeps: one per run of consecutive
+    SimpleGaussian slots of each colour, per round; and those runs."""
+    C = 2**spec.d
+    runs = gaussian_runs(pool, C, inner)
+    rounds = max(1, -(-sweepstep // (spec.n_active * inner * C)))
+    return sweeps * rounds * sum(len(r) for r in runs), runs
 
 
 def phase_library(device):
@@ -444,6 +507,27 @@ def phase_library(device):
     return launches
 
 
+def movie_params(tmp, steps, *edits):
+    """examples/movie/params.toml written into `tmp` with the input frame's
+    path, `steps` steps, its output under `tmp` and then `edits` (old, new)
+    applied; returns the new file's path."""
+    src = os.path.join(ROOT, "examples", "movie", "params.toml")
+    with open(src) as f:
+        text = f.read()
+    frame = os.path.join(ROOT, "examples", "movie", "inputframe.exyz")
+    for old, new in (
+        ('config = "inputframe.exyz"', f'config = "{frame}"'),
+        ("steps = 50000", f"steps = {steps}"),
+        ('output_path = "./"', f'output_path = "{tmp}"'),
+    ) + edits:
+        assert old in text, f"{old!r} not in {src}"
+        text = text.replace(old, new)
+    params = os.path.join(tmp, "params.toml")
+    with open(params, "w") as f:
+        f.write(text)
+    return params
+
+
 def phase_cli(device):
     """The main path through the TOML CLI (run on the card by default): a
     shortened examples/movie run."""
@@ -451,24 +535,13 @@ def phase_cli(device):
     from particlesmc_tpu_torch.core.energy import total_energy_dense
     from particlesmc_tpu_torch.moves import cb_cuda
 
-    src = os.path.join(ROOT, "examples", "movie", "params.toml")
-    with open(src) as f:
-        text = f.read()
     with tempfile.TemporaryDirectory() as tmp:
-        frame = os.path.join(ROOT, "examples", "movie", "inputframe.exyz")
         steps = 200
-        for old, new in (
-            ('config = "inputframe.exyz"', f'config = "{frame}"'),
-            ("steps = 50000", f"steps = {steps}"),
-            ('output_path = "./"', f'output_path = "{tmp}"'),
+        params = movie_params(
+            tmp, steps,
             ("linear_interval = 500", "linear_interval = 50"),
             ("linear_interval = 1000", "linear_interval = 100"),
-        ):
-            assert old in text, f"{old!r} not in {src}"
-            text = text.replace(old, new)
-        params = os.path.join(tmp, "params.toml")
-        with open(params, "w") as f:
-            f.write(text)
+        )
         cb_cuda.disp_substep.launches = 0
         t0 = time.perf_counter()
         sim = cli.run_file(params)
@@ -517,6 +590,410 @@ def phase_cli_kernel_vs_plain(sim):
           "launches": launches, "f64": out})
     return out, _shapes(args)
 
+# --- the lj-mixture dense point (examples/lj-mixture/run-validation.py) ----
+# Lorentz-Berthelot-fitted pair parameters of the published mixture
+LJMIX_EPS = {(1, 1): 1.0, (1, 2): 1.1523, (2, 2): 1.3702}
+LJMIX_SIG = {(1, 1): 1.0, (1, 2): 1.0339, (2, 2): 1.0640}
+LJMIX_N, LJMIX_X, LJMIX_T, LJMIX_RHO, LJMIX_RCUT = 4096, 0.5, 1.2183, 0.8, 4.0
+LJMIX_SIGMA, LJMIX_CHAINS, LJMIX_STEPS = 0.05, 8, 64
+
+
+def ljmix_write_config(n1, n2, L, path, rng):
+    """Cubic-lattice EXYZ start, species shuffled over the sites."""
+    n = n1 + n2
+    per = round(n ** (1 / 3))
+    assert per**3 == n, f"N={n} must be a cube"
+    a = L / per
+    species = np.array([1] * n1 + [2] * n2)
+    rng.shuffle(species)
+    rows = [f"{n}", f'Lattice="{L:.6f} 0.0 0.0 0.0 {L:.6f} 0.0 0.0 0.0 {L:.6f}" Properties=species:I:1:pos:R:3']
+    k = 0
+    for i in range(per):
+        for j in range(per):
+            for m in range(per):
+                rows.append(f"{species[k]} {(i + 0.5) * a:.8f} {(j + 0.5) * a:.8f} {(m + 0.5) * a:.8f}")
+                k += 1
+    with open(path, "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+def ljmix_cap(rho, rcut, n):
+    """Bucket capacity from the true cell geometry: 3x the mean occupancy of
+    the (even-count) grid's cells at a dense point, 8x below rho = 0.35."""
+    L = (n / rho) ** (1 / 3)
+    nc = int(L / rcut)
+    nc -= nc % 2
+    side = L / max(nc, 2)
+    factor = 8.0 if rho < 0.35 else 3.0
+    return max(16, int(math.ceil(rho * side**3 * factor)))
+
+
+def ljmix_write_params(workdir, cfg, steps):
+    blocks = "".join(
+        f'[model."{s1}-{s2}"]\nname = "LennardJones"\nepsilon = {eps}\nsigma = {LJMIX_SIG[(s1, s2)]}\n'
+        f"rcut = {LJMIX_RCUT}\nshift_potential = false\n\n"
+        for (s1, s2), eps in LJMIX_EPS.items()
+    )
+    toml = f"""
+[system]
+config = "{cfg}"
+temperature = {LJMIX_T}
+density = {LJMIX_RHO}
+list_type = "LinkedList"
+list_parameters = {{cap = {ljmix_cap(LJMIX_RHO, LJMIX_RCUT, LJMIX_N)}}}
+
+[model]
+{blocks}
+[simulation]
+type = "Metropolis"
+nsim = {LJMIX_CHAINS}
+steps = {steps}
+seed = 42
+precision = "mixed"
+parallel_moves = true
+verbose = false
+output_path = "{workdir}"
+
+[[simulation.move]]
+action = "Displacement"
+probability = 0.9
+policy = "SimpleGaussian"
+parameters = {{sigma = {LJMIX_SIGMA}}}
+
+[[simulation.move]]
+action = "DiscreteSwap"
+probability = 0.1
+policy = "DoubleUniform"
+parameters = {{species = [1, 2]}}
+
+[[simulation.output]]
+algorithm = "StoreCallbacks"
+callbacks = ["energy"]
+scheduler_params = {{linear_interval = 16}}
+
+[[simulation.output]]
+algorithm = "StoreAcceptance"
+dependencies = ["Metropolis"]
+scheduler_params = {{linear_interval = {steps}}}
+"""
+    path = os.path.join(workdir, "params.toml")
+    with open(path, "w") as f:
+        f.write(toml)
+    return path
+
+
+def move_acceptance(mc):
+    """Per-move acceptance over all chains, from the sampler's counters."""
+    att = mc.attempted.sum(dim=0).double()
+    return (mc.accepted.sum(dim=0).double() / torch.clamp_min(att, 1.0)).tolist()
+
+
+def species_counts(species, n_species):
+    return torch.stack([(species == s).sum(dim=-1) for s in range(n_species)], dim=-1)
+
+
+def phase_cli_swap(device):
+    """The lj-mixture dense point through the CLI: Displacement (p 0.9) +
+    DiscreteSwap/DoubleUniform (p 0.1), then the kernel against its plain
+    version at this path's shapes."""
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.models.tables import kinds_present
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    n1 = round(LJMIX_N * LJMIX_X)
+    L = (LJMIX_N / LJMIX_RHO) ** (1 / 3)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "config.exyz")
+        ljmix_write_config(n1, LJMIX_N - n1, L, cfg, np.random.default_rng(7))
+        params = ljmix_write_params(tmp, cfg, LJMIX_STEPS)
+        cb_cuda.disp_substep.launches = 0
+        t0 = time.perf_counter()
+        sim = cli.run_file(params)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = cb_cuda.disp_substep.launches
+        energy = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
+    st, spec = sim.mc.system, sim.cb_spec
+    assert st.position.device.type == device.type and st.position.dtype == torch.float32
+    assert spec.ncells == (4, 4, 4) and spec.cap == 192, (spec.ncells, spec.cap)
+    counts = species_counts(st.species, 2)
+    assert bool((counts == torch.tensor([n1, LJMIX_N - n1], device=counts.device)).all()), counts
+    acceptance = move_acceptance(sim.mc)
+    assert all(0.0 < a < 1.0 for a in acceptance), acceptance
+    table64 = sim.chains.table.astype(torch.float64)
+    e_dense = total_energy_dense(st.position.double(), st.species, st.box.double(), table64)
+    gap = float((st.energy - e_dense).abs().max()) / LJMIX_N
+    assert gap <= 1e-5, f"ledger differs from the dense recompute by {gap} per particle"
+    expected, runs = expected_launches(sim.pool, spec, sim.inner, sim.sweepstep, LJMIX_STEPS)
+    assert launches == expected > 0, f"{launches} kernel launches, expected {expected}"
+    assert np.isfinite(energy).all()
+    blocks = LJMIX_STEPS // sim.rebin_every
+    # a one-sweep block for the trace: the profiler's parse of an 8-sweep
+    # block's ~127,000 launches takes about a minute of host time
+    profile = profile_block(lambda: sim._block(1)(sim.mc, sim.pool_params))
+    emit({
+        "phase": "cli_swap", "config": "lj-mixture dense point (examples/lj-mixture, x 0.5, T 1.2183, rho 0.8)",
+        "N": LJMIX_N, "chains": st.n_chains, "precision": "mixed", "cells": list(spec.ncells),
+        "cap": spec.cap, "inner": sim.inner, "sweeps_per_rebin": sim.rebin_every, "steps": LJMIX_STEPS,
+        "sweep_seconds": sim.sweep_seconds, "run_file_seconds": elapsed,
+        "sweeps_per_s": LJMIX_STEPS * st.n_chains / sim.sweep_seconds,
+        "launches": launches, "launches_per_block": launches / blocks,
+        "kernel_runs_per_round": sum(len(r) for r in runs), "kernel_run_lengths": runs,
+        "acceptance": acceptance, "ledger_gap_per_particle": gap,
+        "skip_frac": float(sim.mc.skipped.sum()) / (blocks * st.n_chains),
+        "energy_per_particle": float(energy[-1, 1]), "profiled_block_sweeps": 1, "profiled_block": profile,
+    })
+
+    args = substep_inputs(st, sim.chains.table, spec, sim.inner, LJMIX_SIGMA)
+    cb_cuda.disp_substep.launches = 0
+    kv = compare(args, kinds_present(sim.chains.table))
+    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    emit({"phase": "kernel_vs_plain", "path": "cli_swap", "shapes": _shapes(args), "f32": kv})
+    return launches, kv, _shapes(args)
+
+
+# --- the pgmc-ka2d system (examples/pgmc-ka2d/run-study.py) ----------------
+KA2D_COMPOSITION, KA2D_RHO, KA2D_T, KA2D_N, KA2D_CHAINS = (20, 11, 12), 1.1920748468939728, 0.5, 1290, 10
+KA2D_BLOCKS = 4
+# the learned theta of examples/pgmc-ka2d/README.md, held fixed
+KA2D_THETA = {(0, 2): (0.49, -0.35), (1, 2): (0.11, 1.62)}
+
+
+def ka2d_chains(device, seed=0):
+    """KA2D_CHAINS perturbed 2D lattices, species shuffled in the 20:11:12
+    composition, as run-study.py builds them."""
+    from particlesmc_tpu_torch.core.state import make_system
+
+    n, d = KA2D_N, 2
+    rng = np.random.default_rng(seed)
+    L = (n / KA2D_RHO) ** (1 / d)
+    per = int(np.ceil(n ** (1 / d)))
+    a = L / per
+    grid = np.stack(np.meshgrid(*[np.arange(per) * a + a / 2] * d, indexing="ij"), -1).reshape(-1, d)[:n]
+    tot = sum(KA2D_COMPOSITION)
+    na, nb = round(n * KA2D_COMPOSITION[0] / tot), round(n * KA2D_COMPOSITION[1] / tot)
+    base = np.concatenate([np.full(na, 1), np.full(nb, 2), np.full(n - na - nb, 3)])
+    pos, sp = [], []
+    for _ in range(KA2D_CHAINS):
+        pos.append(grid + rng.uniform(-0.05 * a, 0.05 * a, (n, d)))
+        s = base.copy()
+        rng.shuffle(s)
+        sp.append(s)
+    return make_system(np.stack(pos), np.stack(sp), KA2D_RHO, KA2D_T, device=device)
+
+
+def phase_library_energy_bias(device):
+    """The pgmc-ka2d system through the library: Displacement (p 0.8) + two
+    EnergyBias swaps (p 0.1 each) at the learned theta, float64."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    table = T.JBB(torch.float64, device)
+    st = initialize_energy(ka2d_chains(device), table)
+    counts0 = species_counts(st.species, 3)
+    spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, KA2D_N)
+    pool = (MB.displacement(0.05, 0.8),) + tuple(
+        MB.discrete_swap(s1, s2, 0.1, policy="energy_bias", theta1=t1, theta2=t2)
+        for (s1, s2), (t1, t2) in KA2D_THETA.items()
+    )
+    inner, sweeps = 8, 8
+    params = MB.init_pool_params(pool, torch.float64, device)
+    hs = CB.build_hyper_sweep_fn(spec, table, KA2D_N, inner=inner, sweeps=sweeps, pool=pool)
+    cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
+    cb_cuda.disp_substep.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(KA2D_BLOCKS):
+        cb = hs(cb, params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = cb_cuda.disp_substep.launches
+    st = cb.system
+    assert torch.equal(species_counts(st.species, 3), counts0), "a swap changed a chain's composition"
+    e_dense = total_energy_dense(st.position, st.species, st.box, table)
+    rel = float(((st.energy - e_dense).abs() / e_dense.abs()).max())
+    assert rel <= 1e-9, f"ledger differs from the dense recompute by {rel} relative"
+    accepted = cb.accepted.sum(dim=0).tolist()
+    assert all(a >= 1 for a in accepted), f"a move was never accepted: {accepted}"
+    expected, runs = expected_launches(pool, spec, inner, KA2D_N, sweeps * KA2D_BLOCKS)
+    assert launches == expected > 0, f"{launches} kernel launches, expected {expected}"
+    hs1 = CB.build_hyper_sweep_fn(spec, table, KA2D_N, inner=inner, sweeps=1, pool=pool)
+    profile = profile_block(lambda: hs1(cb, params))
+    emit({
+        "phase": "library_energy_bias", "config": "pgmc-ka2d (2D JBB 20:11:12, rho 1.19207, T 0.5)",
+        "N": KA2D_N, "chains": KA2D_CHAINS, "precision": "f64", "cells": list(spec.ncells),
+        "cap": spec.cap, "inner": inner, "sweeps_per_rebin": sweeps, "blocks": KA2D_BLOCKS,
+        "theta": {f"{s1 + 1}-{s2 + 1}": t for (s1, s2), t in KA2D_THETA.items()},
+        "seconds": elapsed, "sweeps_per_s": sweeps * KA2D_BLOCKS * KA2D_CHAINS / elapsed,
+        "launches": launches, "launches_per_block": launches / KA2D_BLOCKS,
+        "kernel_runs_per_round": sum(len(r) for r in runs), "kernel_run_lengths": runs,
+        "acceptance": move_acceptance(cb), "accepted": accepted, "ledger_max_rel_gap": rel,
+        "skip_frac": float(cb.skipped.sum()) / (KA2D_BLOCKS * KA2D_CHAINS),
+        "profiled_block_sweeps": 1, "profiled_block": profile,
+    })
+    return launches, (cb, spec, table, pool, params, inner, runs)
+
+
+def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs):
+    """The kernel against its plain version at the library_energy_bias
+    path's shapes, on its final state (float64, B = 10): alone, at every run
+    length that path's schedule launches (the plain version timed at the
+    longest); then one whole sweep of the mixed pool, which cuts each
+    colour into kernel runs on slices of the draws with the live centre
+    lanes written back between slots, once through the kernel and once
+    through its plain version from the same generator seed."""
+    from particlesmc_tpu_torch.models.tables import kinds_present
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    kinds = kinds_present(table)
+    sigma = dict(pool[0].params)["sigma"]
+    lengths = sorted({n for row in runs for n in row})
+    cb_cuda.disp_substep.launches = 0
+    by_length = {}
+    for n in lengths:
+        args = substep_inputs(cb.system, table, spec, n, sigma)
+        by_length[n] = compare(args, kinds, time_plain=n == lengths[-1])
+    longest = by_length[lengths[-1]]
+
+    hs1 = CB.build_hyper_sweep_fn(spec, table, cb.system.n_particles, inner=inner, sweeps=1, pool=pool)
+
+    def sweep(substep):
+        CB.disp_substep = substep
+        try:
+            return hs1(CB.init_cb_state(cb.system, spec, seed=11, n_moves=len(pool)), params)
+        finally:
+            CB.disp_substep = cb_cuda.disp_substep
+
+    k_cb = sweep(cb_cuda.disp_substep)
+    p_cb = sweep(lambda *a, kinds=None: cb_cuda.disp_substep_plain(*a))
+    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    ks, ps = k_cb.system, p_cb.system
+    assert torch.equal(k_cb.attempted, p_cb.attempted) and torch.equal(k_cb.accepted, p_cb.accepted), \
+        "the sweep's counters differ between the kernel and its plain version"
+    assert torch.equal(ks.species, ps.species), "the sweep's species differ"
+    pos_err = float((ks.position - ps.position).abs().max())
+    e_rel = float(((ks.energy - ps.energy).abs() / ps.energy.abs()).max())
+    assert pos_err <= 1e-9, f"the sweep's positions differ by {pos_err}"
+    assert e_rel <= 1e-9, f"the sweep's ledgers differ by {e_rel} relative"
+    sweep_out = {"position_max_abs_err": pos_err, "energy_max_rel_err": e_rel,
+                 "accepted": k_cb.accepted.sum(dim=0).tolist()}
+    shapes = _shapes(substep_inputs(cb.system, table, spec, lengths[-1], sigma))
+    emit({"phase": "kernel_vs_plain", "path": "library_energy_bias", "shapes": shapes,
+          "run_lengths": lengths, "f64": {str(n): v for n, v in by_length.items()}, "sweep": sweep_out})
+    errs = {"max_abs_err": max(v["max_abs_err"] for v in by_length.values()),
+            "booked_max_rel_err": max(v["booked_max_rel_err"] for v in by_length.values())}
+    return {**longest, **errs, "sweep": sweep_out}, shapes
+
+
+def phase_cli_smart(device):
+    """examples/movie/params.toml with SmartGaussian through the CLI: no
+    Gaussian slot, so no kernel launch."""
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    steps = 48
+    with tempfile.TemporaryDirectory() as tmp:
+        params = movie_params(
+            tmp, steps,
+            ('policy = "SimpleGaussian"', 'policy = "SmartGaussian"'),
+            ("linear_interval = 500", "linear_interval = 16"),
+            ("linear_interval = 1000", f"linear_interval = {steps}"),
+        )
+        cb_cuda.disp_substep.launches = 0
+        sim = cli.run_file(params)
+        torch.cuda.synchronize()
+        launches = cb_cuda.disp_substep.launches
+        accept = np.loadtxt(os.path.join(tmp, "moves", "1", "acceptance.dat"))
+    st = sim.mc.system
+    assert sim.pool[0].policy == "smart" and st.position.device.type == device.type
+    acceptance = float(accept[-1, 1])
+    assert 0.0 < acceptance < 1.0, f"acceptance {acceptance}"
+    e_dense = float(total_energy_dense(st.position, st.species, st.box, sim.chains.table)[0])
+    ledger = float(st.energy[0])
+    assert math.isclose(ledger, e_dense, rel_tol=1e-9), (ledger, e_dense)
+    assert launches == 0, f"{launches} kernel launches on a pool without a Gaussian slot"
+    profile = profile_block(lambda: sim._block(1)(sim.mc, sim.pool_params))
+    emit({
+        "phase": "cli_smart", "params": f"examples/movie/params.toml (SmartGaussian, steps {steps})",
+        "N": st.n_particles, "precision": "f64", "cells": list(sim.cb_spec.ncells), "cap": sim.cb_spec.cap,
+        "inner": sim.inner, "sweep_seconds": sim.sweep_seconds, "sweeps_per_s": steps / sim.sweep_seconds,
+        "launches": launches, "acceptance": acceptance, "ledger": ledger, "dense": e_dense,
+        "profiled_block_sweeps": 1, "profiled_block": profile,
+    })
+
+
+# --- ortho-terphenyl production size (examples/ortho-terphenyl) -------------
+MOL_CHAINS, MOL_INNER, MOL_REBIN, MOL_CAP, MOL_SIGMA, MOL_BLOCKS = 16, 16, 16, 32, 0.06, 2
+MOL_GOLDEN = 25.65865662277199
+
+
+def phase_library_molecular(device):
+    """tests/fixtures/molecule.npz (1000 trimers, Trimer, T = 2.0, rho = 1.2)
+    through the library: the golden energy, then 16 chains of Displacement
+    (p 0.9) + MoleculeFlip (p 0.1) at the README's production settings."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
+    from particlesmc_tpu_torch.core.state import bonds_from_pairs, make_system
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", "molecule.npz"))
+    n = len(fx["species"])
+    table = T.resolve_model(str(fx["model"]), 3, torch.float64, device)
+    st = make_system(
+        fx["position"], fx["species"], float(fx["density"]), float(fx["temperature"]),
+        molecule=fx["molecule"], bonds=bonds_from_pairs(fx["bond_pairs"] - 1, n), box=fx["box"],
+        device=device,
+    )
+    st = initialize_energy(st, table)
+    golden = float(st.energy[0]) / n
+    assert abs(golden - MOL_GOLDEN) <= 1e-6, f"energy per particle {golden}, golden {MOL_GOLDEN}"
+    st = st.repeat(MOL_CHAINS)
+    key0 = torch.sort(st.molecule * 3 + st.species, dim=-1).values  # each molecule's species multiset
+    spec = CB.make_cb_spec(st.box[0].cpu().numpy(), T.interaction_range(table), n, MOL_CAP, occ_factor=4.0)
+    assert spec.ncells == (8, 8, 8) and spec.n_active == 64, spec
+    pool = (MB.displacement(MOL_SIGMA, 0.9), MB.molecule_flip(0.1))
+    params = MB.init_pool_params(pool, torch.float64, device)
+    max_bonds = int(st.bonds.shape[-1])
+    hs = CB.build_hyper_sweep_fn(spec, table, n, inner=MOL_INNER, sweeps=MOL_REBIN, pool=pool,
+                                 max_bonds=max_bonds)
+    cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
+    cb_cuda.disp_substep.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(MOL_BLOCKS):
+        cb = hs(cb, params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = cb_cuda.disp_substep.launches
+    st = cb.system
+    e_dense = total_energy_dense(st.position, st.species, st.box, table, st.bonds)
+    rel = float(((st.energy - e_dense).abs() / e_dense.abs()).max())
+    assert rel <= 1e-9, f"ledger differs from the dense recompute with bonds by {rel} relative"
+    assert torch.equal(torch.sort(st.molecule * 3 + st.species, dim=-1).values, key0), \
+        "a molecule's species multiset changed"
+    acceptance = move_acceptance(cb)
+    assert all(0.0 < a < 1.0 for a in acceptance), acceptance
+    assert launches == 0, f"{launches} kernel launches on a molecular pool"
+    # one sweep per rebin for the trace: a 16-sweep block is ~10^6 launches
+    hs1 = CB.build_hyper_sweep_fn(spec, table, n, inner=MOL_INNER, sweeps=1, pool=pool, max_bonds=max_bonds)
+    profile = profile_block(lambda: hs1(cb, params))
+    emit({
+        "phase": "library_molecular", "config": "molecule.npz (1000 trimers, Trimer, T 2.0, rho 1.2)",
+        "N": n, "chains": MOL_CHAINS, "precision": "f64", "golden_energy_per_particle": golden,
+        "cells": list(spec.ncells), "n_active": spec.n_active, "cap": spec.cap, "inner": MOL_INNER,
+        "sweeps_per_rebin": MOL_REBIN, "blocks": MOL_BLOCKS, "seconds": elapsed,
+        "sweeps_per_s": MOL_REBIN * MOL_BLOCKS * MOL_CHAINS / elapsed,
+        "block_ms": 1e3 * elapsed / MOL_BLOCKS, "launches": launches, "acceptance": acceptance,
+        "ledger_max_rel_gap": rel, "skip_frac": float(cb.skipped.sum()) / (MOL_BLOCKS * MOL_CHAINS),
+        "profiled_block_sweeps": 1, "profiled_block": profile,
+    })
+
 
 def phase_launch_plan(paths):
     """The launcher's cells (warps) per block and dynamic shared memory per
@@ -548,17 +1025,34 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
-    name, smi = phase_device()
-    phase_build()
-    kv, lib_shapes = phase_kernel_vs_plain(device)
-    launches = phase_library(device)
-    sim, cli_launches = phase_cli(device)
-    kc, cli_shapes = phase_cli_kernel_vs_plain(sim)
+    wall = {}
+
+    def timed(fn, *args):
+        """fn(*args), its wall seconds kept under the phase's name."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        wall[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+        return out
+
+    name, smi = timed(phase_device)
+    timed(phase_build)
+    kv, lib_shapes = timed(phase_kernel_vs_plain, device)
+    launches = timed(phase_library, device)
+    sim, cli_launches = timed(phase_cli, device)
+    kc, cli_shapes = timed(phase_cli_kernel_vs_plain, sim)
+    swap_launches, ks, swap_shapes = timed(phase_cli_swap, device)
+    bias_launches, bias_run = timed(phase_library_energy_bias, device)
+    kb, bias_shapes = timed(phase_bias_kernel_vs_plain, *bias_run)
+    timed(phase_cli_smart, device)
+    timed(phase_library_molecular, device)
     phase_launch_plan([
         ("library", torch.float32, lib_shapes),
         ("library", torch.float64, lib_shapes),
         ("cli", torch.float64, cli_shapes),
+        ("cli_swap", torch.float32, swap_shapes),
+        ("library_energy_bias", torch.float64, bias_shapes),
     ])
+    emit({"phase": "wall_seconds", **wall, "total": sum(wall.values())})
     f32 = kv["f32"]
     keep = ("variant", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "booked_max_rel_err")
     emit({"kernels": [{
@@ -579,6 +1073,8 @@ def main() -> int:
         "f64": {k: kv["f64"][k] for k in keep},
         "generic_variant_ms": {"f32": kv["f32_generic"]["kernel_ms"], "f64": kv["f64_generic"]["kernel_ms"]},
         "cli_f64": {"launches": cli_launches, **{k: kc[k] for k in keep}},
+        "cli_swap_f32": {"launches": swap_launches, **{k: ks[k] for k in keep}},
+        "library_energy_bias_f64": {"launches": bias_launches, **{k: kb[k] for k in keep}, "sweep": kb["sweep"]},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -3,10 +3,11 @@
 NVT Metropolis Monte Carlo of particle systems, run on an NVIDIA GPU. The
 package mirrors the JAX package's layout (models/, core/, moves/, engine/,
 io/, cli.py) so each module has a counterpart there; the JAX package stays
-the reference that the port is tested against. This slice covers the
-checkerboard displacement hyper-sweep on atomic systems, batched over chains,
-with the colour substep's inner loop as a hand-written CUDA kernel
-(moves/cb_cuda.py, csrc/cb_disp_substep.cu).
+the reference that the port is tested against. It covers the checkerboard
+hyper-sweep backend, batched over chains, with every move pool of the JAX
+backend on atomic and molecular systems; the Gaussian displacement sub-moves
+of an atomic pool run in a hand-written CUDA kernel (moves/cb_cuda.py,
+csrc/cb_disp_substep.cu).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; without CUDA and without an explicit device they raise.
@@ -20,7 +21,9 @@ from .models.tables import (
     KobAndersen,
     MODEL_REGISTRY,
     PairTable,
+    Trimer,
     build_pair_table,
+    general_kg,
     lennard_jones,
     resolve_model,
     smooth_lennard_jones,

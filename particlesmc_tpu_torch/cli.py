@@ -44,17 +44,29 @@ def _build_pool(move_cfgs):
             if policy == "SimpleGaussian":
                 pool.append(MB.displacement(params["sigma"], prob))
             elif policy == "SmartGaussian":
-                raise unported("SmartGaussian displacement", 6)
+                pool.append(MB.displacement_smart(params["sigma"], prob))
             else:
                 raise ValueError(f"Unsupported policy: {policy} for action: {action}")
         elif action == "DiscreteSwap":
-            if policy not in ("DoubleUniform", "EnergyBias"):
+            sp = params.get("species")
+            if not sp or len(sp) != 2:
+                raise ValueError("'species' for action DiscreteSwap must be two ints")
+            s1, s2 = int(sp[0]) - 1, int(sp[1]) - 1  # file species are 1-based
+            if policy == "DoubleUniform":
+                pool.append(MB.discrete_swap(s1, s2, prob))
+            elif policy == "EnergyBias":
+                pool.append(
+                    MB.discrete_swap(
+                        s1, s2, prob, policy="energy_bias",
+                        theta1=params.get("theta1", 0.0), theta2=params.get("theta2", 0.0),
+                    )
+                )
+            else:
                 raise ValueError(f"Unsupported policy: {policy} for action: {action}")
-            raise unported(f"DiscreteSwap/{policy} moves", 6)
         elif action == "MoleculeFlip":
             if policy != "DoubleUniform":
                 raise ValueError(f"Unsupported policy: {policy} for action: {action}")
-            raise unported("MoleculeFlip moves", 7)
+            pool.append(MB.molecule_flip(prob))
         else:
             raise ValueError(f"Unsupported action: {action}")
     return tuple(pool)

@@ -1,6 +1,13 @@
 """Build the port's objects from the JAX package's objects given as numpy
 arrays, so that both packages can compute from identical parameters and
 state. Nothing here imports the JAX package: callers pass plain arrays.
+
+What carries across: every PairTable field (the pair parameters and the
+FENE/LJ bond parameters), a system's positions, species, box, density,
+temperature and energy ledger and, for a molecular system, its molecule ids
+and padded bond lists, and a checkerboard sampler's arrays (planes,
+including the molecular planes, bins, counters). The random state does not:
+JAX keys have no torch counterpart.
 """
 
 from __future__ import annotations
@@ -22,7 +29,9 @@ def _float(a, dtype, device):
 
 
 def table_from_numpy(fields: Dict[str, np.ndarray], dtype=torch.float64, device=None) -> PairTable:
-    """A PairTable from {field name: [S, S] array} (every PairTable field)."""
+    """A PairTable from {field name: [S, S] array}: every PairTable field,
+    the bond fields (has_bond, kr02, r02, eps4b, sigma2b, shiftb, rcut2b)
+    included."""
     device = resolve_device(device)
     mats = {}
     for f in dataclasses.fields(PairTable):
@@ -36,12 +45,17 @@ def table_from_numpy(fields: Dict[str, np.ndarray], dtype=torch.float64, device=
 
 def system_from_numpy(
     position, species, box, density, temperature, energy,
-    dtype=torch.float64, energy_dtype=None, device=None,
+    dtype=torch.float64, energy_dtype=None, device=None, molecule=None, bonds=None,
 ) -> SystemState:
     """A batched SystemState from arrays with a leading chains axis:
     position [B, N, d], species [B, N] (0-based), box [B, d], density,
-    temperature and energy [B]."""
+    temperature and energy [B]; a molecular system also takes molecule
+    [B, N] (0-based) and bonds [B, N, maxb] (partner ids, -1 padded)."""
     device = resolve_device(device)
+
+    def i64(a):
+        return None if a is None else torch.tensor(np.asarray(a, np.int64), device=device)
+
     return SystemState(
         position=_float(position, dtype, device),
         species=torch.tensor(np.asarray(species, np.int64), device=device),
@@ -49,6 +63,8 @@ def system_from_numpy(
         temperature=_float(temperature, dtype, device),
         density=_float(density, dtype, device),
         energy=_float(energy, energy_dtype or dtype, device),
+        molecule=i64(molecule),
+        bonds=i64(bonds),
     )
 
 
@@ -57,7 +73,7 @@ def cb_state_from_numpy(
     overflow, skipped, seed: int = 0,
 ) -> CBState:
     """A CBState around `system` from batched checkerboard arrays: planes
-    [B, d+1, cells, cap], idx [B, cells, cap], slot [B, n], shift [B, d],
+    [B, NP, cells, cap], idx [B, cells, cap], slot [B, n], shift [B, d],
     attempted/accepted [B, n_moves], overflow and skipped [B]. The generator
     is seeded with `seed` (JAX keys do not carry over)."""
     dev = system.position.device

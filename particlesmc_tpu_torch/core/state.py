@@ -2,17 +2,20 @@
 
 Every tensor has a leading chains axis B: the JAX package vmaps one chain's
 state over chains, while a hand-written kernel needs the batch written out.
-Atomic systems only; molecular fields come with ROADMAP.md queue 1 item 7.
+Molecular systems fill the optional `molecule` / `bonds` fields (bond lists
+padded to a static maximum degree with -1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..runtime import resolve_device
+from . import geometry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +26,8 @@ class SystemState:
     - box [B, d], temperature [B], density [B] (float)
     - energy [B]: the incremental energy ledger; float64 under mixed
       precision (float32 positions), else the position dtype
+    - molecule [B, N] (int64, 0-based molecule id) and bonds [B, N, maxb]
+      (int64 partner ids, -1 padded) for molecular systems; None for atoms
     """
 
     position: torch.Tensor
@@ -31,6 +36,8 @@ class SystemState:
     temperature: torch.Tensor
     density: torch.Tensor
     energy: torch.Tensor
+    molecule: Optional[torch.Tensor] = None
+    bonds: Optional[torch.Tensor] = None
 
     @property
     def n_chains(self) -> int:
@@ -44,6 +51,10 @@ class SystemState:
     def dim(self) -> int:
         return self.position.shape[-1]
 
+    @property
+    def is_molecular(self) -> bool:
+        return self.bonds is not None
+
     def replace(self, **kw) -> "SystemState":
         return dataclasses.replace(self, **kw)
 
@@ -51,14 +62,11 @@ class SystemState:
         """n_chains copies of a one-chain state."""
         if self.n_chains != 1:
             raise ValueError("repeat expects a one-chain state")
-        return SystemState(
-            **{
-                f.name: getattr(self, f.name).repeat(
-                    (n_chains,) + (1,) * (getattr(self, f.name).dim() - 1)
-                )
-                for f in dataclasses.fields(self)
-            }
-        )
+        out = {}
+        for f in dataclasses.fields(self):
+            t = getattr(self, f.name)
+            out[f.name] = None if t is None else t.repeat((n_chains,) + (1,) * (t.dim() - 1))
+        return SystemState(**out)
 
 
 def make_system(
@@ -67,6 +75,8 @@ def make_system(
     density,
     temperature,
     *,
+    molecule=None,
+    bonds=None,
     box=None,
     dtype=torch.float64,
     device=None,
@@ -76,8 +86,11 @@ def make_system(
     `species` may be 1-based as in config files: each chain's species are
     shifted to 0-based when their minimum is 1. The box defaults to the
     cubic (N/rho)^(1/d) box. `density` and `temperature` are scalars or one
-    value per chain. The state lives on `device`: the card unless the caller
-    names another. Energy is left at 0; call energy.initialize_energy.
+    value per chain. A molecular system also takes `molecule` ([N] or
+    [B, N], shifted to 0-based like species) and `bonds` (per-particle
+    partner lists, see pad_bonds; one chain's, shared by all). The state
+    lives on `device`: the card unless the caller names another. Energy is
+    left at 0; call energy.initialize_energy.
     """
     device = resolve_device(device)
     position = np.asarray(position, np.float64)
@@ -96,11 +109,61 @@ def make_system(
     def f(a):
         return torch.tensor(np.ascontiguousarray(a), dtype=torch.float64).to(device, dtype)
 
+    def i64(a):
+        return torch.tensor(np.ascontiguousarray(a), dtype=torch.int64, device=device)
+
+    mol = bnd = None
+    if molecule is not None:
+        mol = np.asarray(molecule)
+        mol = np.broadcast_to(mol if mol.ndim == 2 else mol[None], (B, n))
+        mol = i64(mol - (mol.min(axis=1, keepdims=True) >= 1))
+    if bonds is not None:
+        bnd = pad_bonds(bonds, n)
+        bnd = i64(np.broadcast_to(bnd if bnd.ndim == 3 else bnd[None], (B,) + bnd.shape[-2:]))
     return SystemState(
         position=f(position),
-        species=torch.tensor(np.ascontiguousarray(species), dtype=torch.int64, device=device),
+        species=i64(species),
         box=f(box),
         temperature=f(temperature),
         density=f(density),
         energy=torch.zeros(B, dtype=dtype, device=device),
+        molecule=mol,
+        bonds=bnd,
     )
+
+
+def pad_bonds(bonds, n: int) -> np.ndarray:
+    """Per-particle bond lists (0-based partner ids) as a padded [N, maxb]
+    int64 array with -1 fill (maxb >= 1), each list sorted. An array of two
+    or more dimensions is taken as already padded."""
+    if isinstance(bonds, (np.ndarray, torch.Tensor)) and bonds.ndim >= 2:
+        return np.asarray(bonds.cpu() if isinstance(bonds, torch.Tensor) else bonds, np.int64)
+    maxb = max(1, max((len(b) for b in bonds), default=0))
+    out = np.full((n, maxb), -1, np.int64)
+    for i, bl in enumerate(bonds):
+        out[i, : len(bl)] = sorted(bl)
+    return out
+
+
+def bonds_from_pairs(pairs, n: int):
+    """Per-particle bond lists from (i, j) pairs (0-based)."""
+    adj = [[] for _ in range(n)]
+    for i, j in pairs:
+        adj[int(i)].append(int(j))
+        adj[int(j)].append(int(i))
+    return adj
+
+
+def mol_table(molecule):
+    """(start, length) per molecule for consecutive-run molecule ids, as
+    numpy int32 arrays."""
+    molecule = np.asarray(molecule)
+    change = np.flatnonzero(np.diff(molecule)) + 1
+    starts = np.concatenate([[0], change])
+    lengths = np.diff(np.concatenate([starts, [len(molecule)]]))
+    return starts.astype(np.int32), lengths.astype(np.int32)
+
+
+def fold_positions(state: SystemState) -> SystemState:
+    """Fold all positions into the primary box."""
+    return state.replace(position=geometry.fold_back(state.position, state.box[:, None, :]))

@@ -28,6 +28,7 @@ import torch
 from ..io import formats
 from ..io.loader import Chains
 from ..moves import checkerboard as CBK
+from ..models.tables import interaction_range
 from ..moves.base import Move, init_pool_params
 from ..runtime import unported
 from .callbacks import CALLBACK_REGISTRY
@@ -139,12 +140,19 @@ class Simulation:
         if params.get("trim", False) not in (False, 0, "0", "off", "false", None):
             raise unported("candidate compaction (list_parameters.trim)", 14)
         box0 = st.box[0].double().cpu().numpy()
+        molecular = st.is_molecular
+        self.max_bonds = int(st.bonds.shape[-1]) if molecular else 0
         if not torch.equal(st.box, st.box[:1].expand_as(st.box)):
             raise ValueError(
                 "parallel_moves requires all chains to share one box "
                 "(the checkerboard grid is static)"
             )
-        cb_spec = CBK.make_cb_spec(box0, chains.table.max_cutoff, n, params.get("cap"))
+        # molecular cells must span the bond reach (a FENE r0 can exceed the
+        # pair cutoff), and whole molecules crowd into single cells
+        cb_rcut = interaction_range(chains.table) if molecular else chains.table.max_cutoff
+        cb_spec = CBK.make_cb_spec(
+            box0, cb_rcut, n, params.get("cap"), occ_factor=4.0 if molecular else 2.5
+        )
         if cb_spec is None:
             raise ValueError(
                 "box too small for a checkerboard grid (need >= 4 cells per "
@@ -156,6 +164,7 @@ class Simulation:
         self.rebin_every = max(1, int(params.get("rebin_every", 8)))
         self.inner = int(params.get("inner", 8))
         self._blocks: Dict[int, Callable] = {}
+        self._block(self.rebin_every)  # refuses a pool the checkerboard cannot run
         self._event_times = self._collect_event_times()
 
     # ------------------------------------------------------------------
@@ -166,6 +175,7 @@ class Simulation:
             f = CBK.build_hyper_sweep_fn(
                 self.cb_spec, self.chains.table, self.chains.n_particles,
                 self.sweepstep, inner=self.inner, sweeps=sweeps, pool=self.pool,
+                max_bonds=self.max_bonds,
             )
             self._blocks[sweeps] = f
         return f
@@ -219,7 +229,9 @@ class Simulation:
     def _move_file(self, m: int, name: str) -> str:
         return os.path.join(self.path, "moves", str(m + 1), name)
 
-    def _frame_kwargs(self, k: int, t: int, fmt: str):
+    def _frame_kwargs(self, k: int, t: int, fmt: str, with_bonds: bool):
+        """One chain's frame; a molecular system's frames carry the molecule
+        column, and its last frames (not LAMMPS) the bond section."""
         st = self.mc.system
         kw = dict(
             species=st.species[k].cpu().numpy() + 1,
@@ -230,6 +242,16 @@ class Simulation:
         if fmt == "xyz":
             kw["rho"] = float(st.density[k])
             kw["T"] = float(st.temperature[k])
+        if st.molecule is not None:
+            kw["molecule"] = st.molecule[k].cpu().numpy() + 1
+            if with_bonds and fmt != "lammps":
+                bonds = st.bonds[k].cpu().numpy()
+                kw["bond_pairs"] = [
+                    (i + 1, j + 1)
+                    for i in range(bonds.shape[0])
+                    for j in bonds[i]
+                    if j >= 0 and i < j
+                ]
         return kw
 
     def _fire_outputs(self, t: int):
@@ -255,13 +277,13 @@ class Simulation:
             elif a.name == "StoreTrajectories":
                 ext = formats.FORMAT_EXTENSION[a.fmt]
                 for k in range(self.chains.n_chains):
-                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt))
+                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, False))
                     with open(self._chain_file(k, f"trajectory{ext}"), "a") as f:
                         f.write(text)
             elif a.name == "StoreLastFrames":
                 ext = formats.FORMAT_EXTENSION[a.fmt]
                 for k in range(self.chains.n_chains):
-                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt))
+                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, True))
                     with open(self._chain_file(k, f"lastframe{ext}"), "w") as f:
                         f.write(text)
             elif a.name == "PrintTimeSteps":

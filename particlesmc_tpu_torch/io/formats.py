@@ -4,18 +4,18 @@ package's own copy of particlesmc_tpu/io/formats.py, numpy only).
 Re-implements the reference's three dialects exactly (readers and writers), so
 files are interchangeable with the Julia package:
 - XYZ: in-house dialect, header `N` + metadata line with `columns:...`,
-  `cell:Lx,Ly[,Lz]`, `rho:`, `T:` (reference src/IO/xyz.jl:39-84).
+  `cell:Lx,Ly[,Lz]`, `rho:`, `T:` (reference src/IO/xyz.jl:39-84); bonds appended
+  after the frame as `N_bonds\ncolumns:bond\ni j` (src/IO/xyz.jl:61-77).
 - EXYZ: extended-XYZ with `Lattice="9 floats"` diagonal box and
-  `Properties=name:T:dim` triples (reference src/IO/exyz.jl:8-62).
+  `Properties=name:T:dim` triples (reference src/IO/exyz.jl:8-62); bonds as
+  `N_bonds\nProperties=bond:I:2\ni j`.
 - LAMMPS: `ITEM: TIMESTEP/NUMBER OF ATOMS/BOX BOUNDS/ATOMS` dump
   (reference src/IO/lammps.jl:63-106); 2D written with dummy z-bounds.
 
 Parsed configurations are plain dicts of numpy arrays:
-{N, d, box, species, position, metadata[, molecule]}
-(mirrors reference src/IO/IO.jl:41-100). Species ids stay 1-based here (file
-convention); conversion to 0-based happens in state construction. A molecule
-column is read so that the loader can refuse molecular systems; their bond
-sections come with ROADMAP.md queue 1 item 7.
+{N, d, box, species, position, metadata[, molecule, bond_pairs]}
+(mirrors reference src/IO/IO.jl:41-100). Species/molecule ids stay 1-based
+here (file convention); conversion to 0-based happens in state construction.
 """
 
 from __future__ import annotations
@@ -51,6 +51,10 @@ def _parse_columns_xyz(column_str: str, d: int) -> Dict[str, tuple]:
             info["species"] = (1, index)
         elif name == "position":
             info["pos"] = (d, index)
+        elif name == "bond":
+            info["bond"] = (2, index)
+        elif name == "btype":
+            info["btype"] = (1, index)
         else:
             raise FormatError(f"column {name!r} is not supported")
         index += 1
@@ -123,6 +127,14 @@ def _read_frame_lines(lines, start, info, N):
     return species, molecule, position
 
 
+def _read_bond_pairs(lines, n_bonds, col_index=0):
+    pairs = np.zeros((n_bonds, 2), np.int64)
+    for k in range(n_bonds):
+        toks = _split(lines[k])
+        pairs[k] = (int(toks[col_index]), int(toks[col_index + 1]))
+    return pairs
+
+
 def read_xyz(text: str, frame: int = 0) -> Dict:
     """Parse the in-house XYZ dialect (reference src/IO/xyz.jl:39-51)."""
     lines = text.splitlines()
@@ -139,6 +151,15 @@ def read_xyz(text: str, frame: int = 0) -> Dict:
     out = dict(N=N, d=d, box=box, species=species, position=position, metadata=meta)
     if molecule is not None:
         out["molecule"] = molecule
+        # bonds section: N_bonds line + `columns:bond` + pairs (src/IO/xyz.jl:61-77)
+        brow = start + N
+        if brow >= len(lines):
+            raise FormatError("No bonds found in the file")
+        n_bonds = int(lines[brow].strip())
+        bcols = _parse_columns_xyz(lines[brow + 1].replace("columns:", ""), d)
+        if "bond" not in bcols:
+            raise FormatError("Bond array is not written in the XYZ file")
+        out["bond_pairs"] = _read_bond_pairs(lines[brow + 2 :], n_bonds, bcols["bond"][1])
     return out
 
 
@@ -164,6 +185,17 @@ def read_exyz(text: str, frame: int = 0) -> Dict:
     out = dict(N=N, d=pos_d, box=box, species=species, position=position, metadata=_split(meta_line))
     if molecule is not None:
         out["molecule"] = molecule
+        brow = start + N
+        if brow >= len(lines):
+            raise FormatError("No bonds found in the file")
+        n_bonds = int(lines[brow].strip())
+        bm = re.search(r"Properties=(\S*)", lines[brow + 1])
+        binfo = _parse_columns_exyz(bm.group(1)) if bm else _parse_columns_xyz(
+            lines[brow + 1].replace("columns:", ""), pos_d
+        )
+        if "bond" not in binfo:
+            raise FormatError("Bond array is not written in the EXYZ file")
+        out["bond_pairs"] = _read_bond_pairs(lines[brow + 2 :], n_bonds, binfo["bond"][1])
     return out
 
 
@@ -225,6 +257,8 @@ def read_configuration(path: str, frame: int = 0) -> Dict:
 def read_trajectory(path: str) -> List[Dict]:
     """Parse every frame of an appended XYZ/EXYZ trajectory file.
 
+    Trajectory frames carry no bond sections (the reference stores bonds only
+    in last-frames, src/IO/IO.jl:383-391), so bonds are not expected here.
     Each returned dict additionally has "step" extracted from the frame
     header (`step:` in the XYZ dialect, `Time=` in EXYZ).
     """
@@ -276,8 +310,16 @@ def _fmt_pos(position_row: Sequence[float], digits: int) -> str:
     return " ".join(f"{v:.{digits}f}" for v in position_row)
 
 
-def _frame_rows(species, position, digits):
-    return [f"{species[k]} {_fmt_pos(position[k], digits)}" for k in range(len(species))]
+def _frame_rows(species, position, molecule, digits):
+    rows = []
+    for k in range(len(species)):
+        lead = f"{molecule[k]} " if molecule is not None else ""
+        rows.append(f"{lead}{species[k]} {_fmt_pos(position[k], digits)}")
+    return rows
+
+
+def _bond_rows(bond_pairs) -> List[str]:
+    return [f"{i} {j}" for i, j in bond_pairs]
 
 
 def write_xyz_frame(
@@ -287,16 +329,21 @@ def write_xyz_frame(
     step: int,
     rho: float,
     T: float,
+    molecule=None,
+    bond_pairs=None,
     digits: int = 6,
 ) -> str:
     """One XYZ frame (header per reference src/IO/xyz.jl:79-84)."""
     N = len(species)
     cell = ",".join(repr(float(b)) for b in box)
+    molcol = "molecule," if molecule is not None else ""
     lines = [
         str(N),
-        f"step:{step} columns:species,position dt:1 cell:{cell} rho:{float(rho)} T:{float(T)}",
+        f"step:{step} columns:{molcol}species,position dt:1 cell:{cell} rho:{float(rho)} T:{float(T)}",
     ]
-    lines += _frame_rows(species, position, digits)
+    lines += _frame_rows(species, position, molecule, digits)
+    if bond_pairs is not None:
+        lines += [str(len(bond_pairs)), "columns:bond"] + _bond_rows(bond_pairs)
     return "\n".join(lines) + "\n"
 
 
@@ -305,6 +352,8 @@ def write_exyz_frame(
     position,
     box,
     step: int,
+    molecule=None,
+    bond_pairs=None,
     digits: int = 6,
 ) -> str:
     """One EXYZ frame (header per reference src/IO/exyz.jl:54-62, 91-96)."""
@@ -316,11 +365,14 @@ def write_exyz_frame(
         lat = f"{float(box[0])} 0.0 0.0 0.0 {float(box[1])} 0.0 0.0 0.0 {float(box[2])}"
     else:
         raise FormatError("Box vector must have 2 or 3 elements.")
+    molcol = "molecule:I:1" if molecule is not None else ""
     lines = [
         str(N),
-        f'Lattice="{lat}" Properties=:species:S:1:pos:R:{d} Time={step}',
+        f'Lattice="{lat}" Properties={molcol}:species:S:1:pos:R:{d} Time={step}',
     ]
-    lines += _frame_rows(species, position, digits)
+    lines += _frame_rows(species, position, molecule, digits)
+    if bond_pairs is not None:
+        lines += [str(len(bond_pairs)), "Properties=bond:I:2"] + _bond_rows(bond_pairs)
     return "\n".join(lines) + "\n"
 
 
@@ -329,9 +381,13 @@ def write_lammps_frame(
     position,
     box,
     step: int,
+    molecule=None,
+    bond_pairs=None,
     digits: int = 6,
 ) -> str:
     """One LAMMPS dump frame (header per reference src/IO/lammps.jl:88-106)."""
+    if bond_pairs is not None:
+        raise FormatError("LAMMPS format does not support bonds format yet.")
     d = len(box)
     lines = ["ITEM: TIMESTEP", str(step), "ITEM: NUMBER OF ATOMS", str(len(species))]
     lines.append("ITEM: BOX BOUNDS pp pp pp")
@@ -339,9 +395,10 @@ def write_lammps_frame(
         lines.append(f"0.0 {float(box[i])}")
     if d == 2:
         lines.append("-0.1 0.1")
+    molcol = "molecule " if molecule is not None else ""
     axes = "x y" if d == 2 else "x y z"
-    lines.append(f"ITEM: ATOMS type {axes}")
-    lines += _frame_rows(species, position, digits)
+    lines.append(f"ITEM: ATOMS {molcol}type {axes}")
+    lines += _frame_rows(species, position, molecule, digits)
     return "\n".join(lines) + "\n"
 
 

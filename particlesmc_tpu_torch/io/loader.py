@@ -3,8 +3,8 @@
 Parses one file or a directory of files, applies the density rescale, the
 temperature and model overrides, the fold-back, the temperature ladder and
 `nsim` replica cloning, and returns a batched `Chains` bundle. Model and
-list names resolve through explicit registries, never eval. Atomic systems
-only.
+list names resolve through explicit registries, never eval. A file with a
+molecule column and a bond section gives a molecular system.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ import torch
 
 from ..core import geometry
 from ..core.energy import initialize_energy
-from ..core.state import SystemState, make_system
+from ..core.state import SystemState, bonds_from_pairs, make_system, mol_table, pad_bonds
 from ..models.tables import PairTable, resolve_model
-from ..runtime import resolve_device, unported
+from ..runtime import resolve_device
 from . import formats
 
 
@@ -33,6 +33,8 @@ class Chains:
     list_type: str  # 'dense' | 'cell' | 'verlet'
     list_parameters: Dict[str, Any] = field(default_factory=dict)
     n_chains: int = 1
+    mol_start: Optional[np.ndarray] = None  # [Nmol] static molecule layout
+    mol_len: Optional[np.ndarray] = None
 
     @property
     def n_particles(self) -> int:
@@ -105,8 +107,6 @@ def load_chains(
         print(f"Processing {len(input_files)} configuration file(s)")
 
     configs = [load_configuration(f) for f in input_files]
-    if "molecule" in configs[0]:
-        raise unported("molecular systems", 7)
     N, d = configs[0]["N"], configs[0]["d"]
     for c in configs:
         if c["N"] != N or c["d"] != d:
@@ -161,6 +161,7 @@ def load_chains(
         positions = positions * len(temps)
         species = species * len(temps)
         densities = densities * len(temps)
+        configs = configs * len(temps)
     if len(temps) != len(positions):
         raise ValueError(
             f"temperature vector length {len(temps)} does not match the "
@@ -175,6 +176,7 @@ def load_chains(
         species = [s for s in species for _ in range(nsim)]
         densities = [r for r in densities for _ in range(nsim)]
         temps = [t for t in temps for _ in range(nsim)]
+        configs = [c for c in configs for _ in range(nsim)]
 
     n_species = len(np.unique(np.concatenate(species)))
     table = resolve_model(model_spec, n_species, dtype, device)
@@ -189,13 +191,24 @@ def load_chains(
         list_type = LIST_REGISTRY[key]
     list_parameters = dict(args.get("list_parameters") or {})
 
+    # a molecular system: the molecule column and each file's bond section
+    mol_kw: Dict[str, Any] = {}
+    mol_start = mol_len = None
+    if "molecule" in configs[0]:
+        mol_kw["molecule"] = np.stack([c["molecule"] for c in configs])
+        mol_kw["bonds"] = np.stack(
+            [pad_bonds(bonds_from_pairs(c["bond_pairs"] - 1, N), N) for c in configs]
+        )
+
     # as in the reference package, each chain's box is the cubic box of its
     # density (make_system's default)
     states = make_system(
         np.stack(positions), np.stack(species), np.asarray(densities),
-        np.asarray(temps), dtype=dtype, device=device,
+        np.asarray(temps), dtype=dtype, device=device, **mol_kw,
     )
     states = initialize_energy(states, table, energy_dtype=energy_dtype)
+    if states.molecule is not None:
+        mol_start, mol_len = mol_table(states.molecule[0].cpu().numpy())
     if verbose:
         print(f"{states.n_chains} chains created")
     return Chains(
@@ -204,4 +217,6 @@ def load_chains(
         list_type=list_type,
         list_parameters=list_parameters,
         n_chains=states.n_chains,
+        mol_start=mol_start,
+        mol_len=mol_len,
     )

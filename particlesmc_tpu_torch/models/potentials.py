@@ -12,6 +12,9 @@ Potential kinds
 1: inverse power  u = eps * (sigma^2 / r^2)^(n/2) - shift      (SoftSpheres)
 2: Lennard-Jones  u = 4 eps [(s2/r2)^6 - (s2/r2)^3] - shift    (LennardJones)
 3: smooth LJ      u = lj + 4 eps (C0 + C2 r2/s2 + C4 r4/s4)    (SmoothLennardJones)
+
+Bonded pairs (GeneralKG, Trimer) add a FENE spring and a shifted-LJ core
+(bond_potential), evaluated only over each particle's bond list.
 """
 
 from __future__ import annotations
@@ -52,6 +55,12 @@ def _int_pow(y, n_int, nbits: int = 6):
 def inverse_power(r2, eps, sigma2, n_int):
     """eps * (sigma2/r2)^(n/2), n integer."""
     return eps * _int_pow(torch.sqrt(sigma2 / r2), n_int)
+
+
+def fene(r2, kr02, r02):
+    """FENE bond term kr02 * log(1 - r2/r02), kr02 = -k r0^2/2. The caller
+    guards r2 > r02 (bond_potential gives +inf there)."""
+    return kr02 * torch.log(1.0 - r2 / r02)
 
 
 def pair_fields_needed(kinds_present=None):
@@ -115,3 +124,83 @@ def pair_potential(r2, p, kinds_present=None):
     else:
         mask = in_range & (p.kind != KIND_NONE)
     return torch.where(mask, u, torch.zeros_like(u))
+
+
+def pair_virial(r2, p, kinds_present=None):
+    """Pair virial w = -2 r^2 dU/dr^2 = r f(r) for the non-bonded kinds.
+
+    The force on particle a from a lane at separation dx = x_nb - x_a is
+    F_j = -(w / r^2) dx_j (the force-bias displacement's drift). Shifts do
+    not contribute. `kinds_present` prunes the forms as in pair_potential.
+    """
+    kp = (
+        (KIND_INVERSE_POWER, KIND_LENNARD_JONES, KIND_SMOOTH_LJ)
+        if kinds_present is None
+        else tuple(kinds_present)
+    )
+    r2s = torch.clamp_min(r2, 1e-12)
+    x = p.sigma2 / r2s
+    x3 = x * x * x
+    need_lj = KIND_LENNARD_JONES in kp or KIND_SMOOTH_LJ in kp
+    w_lj = p.eps4 * (12.0 * x3 * x3 - 6.0 * x3) if need_lj else None
+
+    if kp == (KIND_LENNARD_JONES,):
+        w = w_lj
+    elif kp == (KIND_INVERSE_POWER,):
+        w = p.eps4 * p.ipl_n * _int_pow(torch.sqrt(x), p.ipl_n)
+    elif kp == (KIND_SMOOTH_LJ,):
+        w = w_lj - 2.0 * r2s * p.eps4 * (p.c2s2 + 2.0 * r2s * p.c4s4)
+    else:
+        kind = p.kind
+        w = torch.zeros_like(x3)
+        if KIND_SMOOTH_LJ in kp:
+            w_smooth = w_lj - 2.0 * r2s * p.eps4 * (p.c2s2 + 2.0 * r2s * p.c4s4)
+            w = torch.where(kind == KIND_SMOOTH_LJ, w_smooth, w)
+        if KIND_LENNARD_JONES in kp:
+            w = torch.where(kind == KIND_LENNARD_JONES, w_lj, w)
+        if KIND_INVERSE_POWER in kp:
+            w_ipl = p.eps4 * p.ipl_n * _int_pow(torch.sqrt(x), p.ipl_n)
+            w = torch.where(kind == KIND_INVERSE_POWER, w_ipl, w)
+
+    in_range = r2 <= p.rcut2
+    if kinds_present is not None and KIND_NONE not in kp and len(kp) > 0:
+        mask = in_range
+    else:
+        mask = in_range & (p.kind != KIND_NONE)
+    return torch.where(mask, w, torch.zeros_like(w))
+
+
+def bond_virial(r2, p):
+    """Bond virial of the FENE spring and the shifted-LJ core,
+    w = -2 r^2 dU/dr^2."""
+    r2s = torch.clamp_min(r2, 1e-12)
+    r02s = torch.where(p.r02 > 0, p.r02, torch.ones_like(p.r02))
+    denom = torch.clamp_min(r02s - r2s, 1e-12)
+    w_fene = 2.0 * r2s * p.kr02 / denom
+    w_fene = torch.where(r2 <= p.r02, w_fene, torch.zeros_like(w_fene))
+    x = p.sigma2b / r2s
+    x3 = x * x * x
+    w_lj = p.eps4b * (12.0 * x3 * x3 - 6.0 * x3)
+    w_lj = torch.where(r2 <= p.rcut2b, w_lj, torch.zeros_like(w_lj))
+    return torch.where(p.has_bond > 0, w_fene + w_lj, torch.zeros_like(r2s))
+
+
+def bond_potential(r2, p):
+    """Bonded interaction: FENE spring + shifted LJ core.
+
+      u_fene = kr02 * log(1 - r2/r0^2) for r2 <= r0^2, else +inf
+      u_lj   = lj(r2; eps4b, sigma2b) - shiftb for r2 <= rcutbond^2, else 0
+    Pairs without a bond term (has_bond == 0) give 0.
+    """
+    r2s = torch.clamp_min(r2, 1e-12)
+    inf = torch.full_like(r2s, float("inf"))
+    r02s = torch.where(p.r02 > 0, p.r02, torch.ones_like(p.r02))
+    arg = 1.0 - r2s / r02s
+    u_fene = p.kr02 * torch.log(torch.clamp_min(arg, 1e-30))
+    u_fene = torch.where(r2 <= p.r02, u_fene, inf)
+    x = p.sigma2b / r2s
+    x3 = x * x * x
+    u_lj = p.eps4b * (x3 * x3 - x3) - p.shiftb
+    u_lj = torch.where(r2 <= p.rcut2b, u_lj, torch.zeros_like(u_lj))
+    u = u_fene + u_lj
+    return torch.where(p.has_bond > 0, u, torch.zeros_like(u))

@@ -3,9 +3,8 @@ particlesmc_tpu/models/tables.py).
 
 A `PairTable` holds one [S, S] tensor per precomputed parameter, indexed by
 the species pair. The per-pair constructors are host-side float64 math that
-mirrors the reference parameterisations: BHHP, KobAndersen, JBB. The
-molecular models (Trimer, GeneralKG: FENE bonds) come with ROADMAP.md queue 1
-item 7 and raise until then.
+mirrors the reference parameterisations: BHHP, KobAndersen, JBB, and the
+molecular Trimer (Kremer-Grest pairs with FENE bonds, GeneralKG).
 """
 
 from __future__ import annotations
@@ -15,7 +14,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 
-from ..runtime import resolve_device, unported
+from ..runtime import resolve_device
 from .potentials import (
     KIND_INVERSE_POWER,
     KIND_LENNARD_JONES,
@@ -28,7 +27,8 @@ _SMOOTH_C0 = 0.04049023795
 _SMOOTH_C2 = -0.00970155098
 _SMOOTH_C4 = 0.00062012616
 
-INT_FIELDS = ("kind", "ipl_n")
+INT_FIELDS = ("kind", "ipl_n", "has_bond")
+BOND_FIELDS = ("has_bond", "kr02", "r02", "eps4b", "sigma2b", "shiftb", "rcut2b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +39,8 @@ class PairTable:
     - eps4: 4*eps for LJ-family kinds; raw eps for inverse power
     - sigma2, rcut, rcut2, shift; ipl_n (int32) the inverse-power exponent
     - c0, c2s2, c4s4: smooth-LJ polynomial coefficients (C0, C2/s^2, C4/s^4)
+    - has_bond (int32), kr02, r02, eps4b, sigma2b, shiftb, rcut2b: FENE + LJ
+      bond parameters (GeneralKG)
     """
 
     kind: torch.Tensor
@@ -51,6 +53,13 @@ class PairTable:
     c0: torch.Tensor
     c2s2: torch.Tensor
     c4s4: torch.Tensor
+    has_bond: torch.Tensor
+    kr02: torch.Tensor
+    r02: torch.Tensor
+    eps4b: torch.Tensor
+    sigma2b: torch.Tensor
+    shiftb: torch.Tensor
+    rcut2b: torch.Tensor
 
     @property
     def n_species(self) -> int:
@@ -82,9 +91,14 @@ class PairTable:
 
 
 def interaction_range(table: PairTable) -> float:
-    """Largest interaction range: the largest pair cutoff (atomic tables
-    have no bond terms)."""
-    return float(table.rcut.double().max())
+    """Largest interaction range including bond terms: the cell-sizing input
+    for molecular systems. A FENE bond reaches to r0 and its LJ core to
+    rcutbond, which can exceed the non-bonded cutoff (Trimer: r0 up to
+    1.575 against a pair cutoff of ~1.23)."""
+    r = table.rcut.double().cpu()
+    rb = torch.sqrt(torch.maximum(table.rcut2b.double().cpu(), table.r02.double().cpu()))
+    rb = torch.where(table.has_bond.cpu() > 0, rb, torch.zeros_like(rb))
+    return float(torch.maximum(r, rb).max())
 
 
 def kinds_present(table: PairTable):
@@ -130,6 +144,13 @@ def _base_entry() -> Dict[str, float]:
         c0=0.0,
         c2s2=0.0,
         c4s4=0.0,
+        has_bond=0,
+        kr02=0.0,
+        r02=0.0,
+        eps4b=0.0,
+        sigma2b=1.0,
+        shiftb=0.0,
+        rcut2b=0.0,
     )
 
 
@@ -191,6 +212,48 @@ def smooth_lennard_jones(eps: float, sigma: float, rcut: float | None = None) ->
     return e
 
 
+def general_kg(
+    eps: float,
+    sigma: float,
+    k: float,
+    r0: float,
+    rcut: float | None = None,
+    epsbond: float | None = None,
+    sigmabond: float | None = None,
+    rcutbond: float | None = None,
+) -> Dict:
+    """Kremer-Grest: WCA-cut LJ pair plus a FENE/LJ bond."""
+    if rcut is None:
+        rcut = 2 ** (1 / 6) * sigma
+    if epsbond is None:
+        epsbond = eps
+    if sigmabond is None:
+        sigmabond = sigma
+    if rcutbond is None:
+        rcutbond = rcut
+    e = _base_entry()
+    sigma2 = sigma * sigma
+    sigma2b = sigmabond * sigmabond
+    rcut2 = rcut * rcut
+    rcut2b = rcutbond * rcutbond
+    e.update(
+        kind=KIND_LENNARD_JONES,
+        eps4=4 * eps,
+        sigma2=sigma2,
+        rcut=rcut,
+        rcut2=rcut2,
+        shift=_lj_unshifted(rcut2, 4 * eps, sigma2),
+        has_bond=1 if k != 0.0 else 0,
+        kr02=-k * r0 * r0 / 2,
+        r02=r0 * r0,
+        eps4b=4 * epsbond,
+        sigma2b=sigma2b,
+        shiftb=_lj_unshifted(rcut2b, 4 * epsbond, sigma2b),
+        rcut2b=rcut2b,
+    )
+    return e
+
+
 def build_pair_table(
     entries: Sequence[Sequence[Dict]], dtype=torch.float64, device=None
 ) -> PairTable:
@@ -238,15 +301,25 @@ def JBB(dtype=torch.float64, device=None) -> PairTable:
     return build_pair_table(entries, dtype, device)
 
 
+def Trimer(dtype=torch.float64, device=None) -> PairTable:
+    """3-species Kremer-Grest trimer matrix."""
+    sig = [[0.9, 0.95, 1.0], [0.95, 1.0, 1.05], [1.0, 1.05, 1.1]]
+    k = [[0.0, 33.241, 30.0], [33.241, 0.0, 27.210884], [30.0, 27.210884, 0.0]]
+    r0 = [[0.0, 1.425, 1.5], [1.425, 0.0, 1.575], [1.5, 1.575, 0.0]]
+    entries = [
+        [general_kg(1.0, sig[i][j], k[i][j], r0[i][j]) for j in range(3)] for i in range(3)
+    ]
+    return build_pair_table(entries, dtype, device)
+
+
 # Explicit registry in place of evaluating model names
 MODEL_REGISTRY = {
     "BHHP": BHHP,
     "KobAndersen": KobAndersen,
     "JBB": JBB,
+    "Trimer": Trimer,
+    "GeneralKG": Trimer,  # molecule.xyz's metadata names the trimer system model:GeneralKG
 }
-# molecular models of the reference package, ported with ROADMAP.md queue 1
-# item 7
-MOLECULAR_MODELS = ("Trimer", "GeneralKG")
 
 
 def model_matrix_from_dict(
@@ -260,9 +333,18 @@ def model_matrix_from_dict(
             key = f"{i}-{j}" if i <= j else f"{j}-{i}"
             m = model_dict[key]
             name = m["name"]
-            if name in MOLECULAR_MODELS:
-                raise unported(f"the {name} model (molecular systems)", 7)
-            if name == "SmoothLennardJones":
+            if name == "GeneralKG":
+                entry = general_kg(
+                    m["epsilon"],
+                    m["sigma"],
+                    m["k"],
+                    m["r0"],
+                    rcut=m.get("rcut"),
+                    epsbond=m.get("epsilonbond"),
+                    sigmabond=m.get("sigmabond"),
+                    rcutbond=m.get("rcutbond"),
+                )
+            elif name == "SmoothLennardJones":
                 entry = smooth_lennard_jones(m["epsilon"], m["sigma"], rcut=m.get("rcut"))
             elif name == "LennardJones":
                 entry = lennard_jones(
@@ -290,8 +372,6 @@ def resolve_model(model: Any, n_species: int, dtype=torch.float64, device=None) 
         name = model.strip()
         if name.endswith("()"):
             name = name[:-2]
-        if name in MOLECULAR_MODELS:
-            raise unported(f"the {name} model (molecular systems)", 7)
         if name not in MODEL_REGISTRY:
             raise ValueError(f"Unknown model {model!r}; known: {sorted(MODEL_REGISTRY)}")
         return MODEL_REGISTRY[name](dtype, device)

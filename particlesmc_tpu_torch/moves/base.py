@@ -45,6 +45,28 @@ def displacement(sigma: float, probability: float = 1.0) -> Move:
     return Move("displacement", "gaussian", probability, params=(("sigma", float(sigma)),))
 
 
+def displacement_smart(sigma: float, probability: float = 1.0) -> Move:
+    """Force-bias ("smart MC") displacement: delta = clamp(sigma^2/(2T) F(x))
+    + sigma xi with the exact Metropolis-Hastings asymmetry correction.
+    Checkerboard atomic pools only."""
+    return Move("displacement", "smart", probability, params=(("sigma", float(sigma)),))
+
+
+def discrete_swap(
+    s1: int, s2: int, probability: float, policy: str = "double_uniform",
+    theta1: float = 0.0, theta2: float = 0.0,
+) -> Move:
+    """Species swap of a pair of 0-based species; the energy_bias policy
+    picks each partner with probability proportional to exp(theta E)."""
+    params = (("theta1", float(theta1)), ("theta2", float(theta2))) if policy == "energy_bias" else ()
+    return Move("swap", policy, probability, species=(int(s1), int(s2)), params=params)
+
+
+def molecule_flip(probability: float) -> Move:
+    """Exchange of the species of two sites of one molecule."""
+    return Move("flip", "double_uniform", probability)
+
+
 def init_pool_params(pool, dtype=torch.float64, device=None):
     """Initial policy parameters: a tuple of dicts of tensors, one per move,
     on `device` (the card unless the caller names another)."""

@@ -1,27 +1,46 @@
-"""Checkerboard hyper-sweep for atomic displacement pools (counterpart of
-particlesmc_tpu/moves/checkerboard.py).
+"""Checkerboard hyper-sweep (counterpart of particlesmc_tpu/moves/checkerboard.py).
 
 Domain-decomposition Metropolis: particles are binned into a grid of cells
-of side >= rcut (an even count per dimension) under a random origin shift
-drawn per rebin block. A colour substep activates one of the 2^d
-checkerboard sublattices; active cells are at least one cell apart, so one
-move per active cell is independent of every other. Each active cell runs
-`inner` sequential sub-moves (uniform pick, Gaussian proposal, rejection of
-a proposal that leaves the cell, Metropolis accept) against its own lanes
-and the 3^d - 1 neighbour cells, which stay static for the substep. The
-colours cycle in a fixed order; the per-block shift restores ergodicity
-across cell boundaries. A block whose binning overflows a bucket is the
-identity (skip-on-overflow), which keeps the chain unbiased.
+of side >= the interaction range (an even count per dimension) under a
+random origin shift drawn per rebin block. A colour substep activates one of
+the 2^d checkerboard sublattices; active cells are at least one cell apart,
+so one move per active cell is independent of every other. Each active cell
+runs `inner` sequential sub-moves against its own lanes and the 3^d - 1
+neighbour cells, which stay static for the substep. The colours cycle in a
+fixed order; the per-block shift restores ergodicity across cell boundaries.
+A block whose binning overflows a bucket is the identity (skip-on-overflow),
+which keeps the chain unbiased.
 
-Layout: plane payload [B, d+1, cells, cap] (shifted-frame positions, then
-species as floats with -1 for empty), kept in a wrap-padded grid whose halo
-faces are image-corrected so that every in-substep distance is a plain
-coordinate difference. The inner loop of a substep is the CUDA kernel of
-moves/cb_cuda.py; the binning, neighbour extraction, halo refresh and unbin
-are plain PyTorch.
+Moves (a static per-slot schedule realises the pool's mixture):
+- Displacement/SimpleGaussian: uniform pick in the cell, Gaussian proposal,
+  rejection of a proposal that leaves the cell, Metropolis accept.
+- Displacement/SmartGaussian (atomic): force-bias drift, clamped, with the
+  exact Metropolis-Hastings asymmetry correction.
+- DiscreteSwap/DoubleUniform (atomic): one particle of each species picked
+  uniformly within the cell, labels exchanged; the cell's composition is
+  kept, so the proposal is symmetric.
+- DiscreteSwap/EnergyBias (atomic): each partner picked by a masked softmax
+  of theta times its local energy, with the reverse density evaluated in the
+  post-swap configuration.
+- MoleculeFlip (molecular): a site i uniform in the cell and a partner site
+  j uniform among the other members of i's molecule, rejected unless j is in
+  the same cell and the species differ.
 
-Only all-SimpleGaussian displacement pools on atomic systems are ported;
-everything else raises NotImplementedError naming its ROADMAP.md item.
+Layout: plane payload [B, NP, cells, cap] (shifted-frame positions, species
+as floats with -1 for empty; molecular systems add particle id, bond-partner
+ids, molecule start and molecule length), kept in a wrap-padded grid whose
+halo faces are image-corrected so that every in-substep distance is a plain
+coordinate difference. The in-cell test is [lo, hi) of the active cell.
+
+The kernel: on an atomic system every maximal run of consecutive
+SimpleGaussian slots of a colour is one launch of the CUDA kernel of
+moves/cb_cuda.py, so an all-Gaussian pool is one launch per colour. The
+other sub-moves are plain PyTorch on the batched tensors, as in the JAX
+package they are XLA only. A molecular pool's Gaussian slots do not go
+through the kernel: it computes the atomic ΔE only, without bond exclusions
+or bond terms, and the reference keeps its kernel off for molecular systems
+as well. The binning, neighbour extraction, halo refresh and unbin are plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -36,8 +55,14 @@ import torch
 
 from ..core.geometry import fold_back
 from ..core.state import SystemState
-from ..models.tables import PairTable, kinds_present
-from ..runtime import unported
+from ..models.potentials import (
+    PAIR_FIELDS,
+    bond_potential,
+    pair_fields_needed,
+    pair_potential,
+    pair_virial,
+)
+from ..models.tables import BOND_FIELDS, PairTable, _Params, gather_pair, kinds_present
 from .cb_cuda import disp_substep, pack_table
 
 
@@ -70,7 +95,9 @@ def make_cb_spec(
 ) -> Optional[CBSpec]:
     """Even-count grid with cell side >= rcut; None if the box is too small
     (fewer than 4 cells in some dimension). `occ_factor` scales the default
-    bucket capacity over the mean occupancy."""
+    bucket capacity over the mean occupancy; molecular systems take ~4 and
+    rcut = tables.interaction_range (whole molecules pack into single cells,
+    and a bond can reach past the pair cutoff)."""
     box = np.asarray(box, np.float64)
     nc = np.floor(box / rcut).astype(int)
     nc = nc - (nc % 2)
@@ -92,7 +119,7 @@ class CBState:
     system: SystemState
     generator: torch.Generator
     shift: torch.Tensor  # [B, d] grid origin offset
-    planes: torch.Tensor  # [B, d+1, cells, cap] shifted positions + species
+    planes: torch.Tensor  # [B, NP, cells, cap] shifted positions, species (+ molecular planes)
     idx: torch.Tensor  # [B, cells, cap] particle ids, -1 padded
     slot: torch.Tensor  # [B, n] flat payload slot of each particle
     attempted: torch.Tensor  # [B, n_moves]
@@ -111,8 +138,32 @@ class CBState:
 # ---------------------------------------------------------------------------
 
 
+def _mol_columns(system: SystemState):
+    """Per-particle molecular payload columns [B, 3 + maxb, n] as floats,
+    -1 padded: particle id, the bond-partner ids, molecule start id and
+    molecule length. They ride in the plane payload so that a sub-move finds
+    a bonded partner by id inside the extracted 3^d blocks (a partner is
+    always within one interaction range, hence in the block). Molecule ids
+    are consecutive runs, so start and length come from run-boundary
+    cummax/cummin. Ids are exact in float32 up to 2^24 particles. None for
+    an atomic system."""
+    if system.bonds is None:
+        return None
+    B, n = system.species.shape
+    dev = system.species.device
+    iota = torch.arange(n, device=dev).expand(B, n)
+    mol = system.molecule
+    diff = mol[:, 1:] != mol[:, :-1]
+    one = torch.ones((B, 1), dtype=torch.bool, device=dev)
+    start_pp = torch.cummax(torch.where(torch.cat([one, diff], 1), iota, 0), dim=1).values
+    end_at = torch.where(torch.cat([diff, one], 1), iota, n - 1)
+    end_pp = torch.flip(torch.cummin(torch.flip(end_at, [1]), dim=1).values, [1])
+    cols = [iota, *system.bonds.unbind(-1), start_pp, end_pp - start_pp + 1]
+    return torch.stack(cols, dim=1).to(system.position.dtype)
+
+
 def rebin(system: SystemState, spec: CBSpec, shift):
-    """Bin every chain: returns planes [B, d+1, cells, cap], idx
+    """Bin every chain: returns planes [B, NP, cells, cap], idx
     [B, cells, cap], slot [B, n] and overflow [B].
 
     A stable sort by cell key orders the particles; each cell's run is then
@@ -128,8 +179,12 @@ def rebin(system: SystemState, spec: CBSpec, shift):
     for k in range(1, d):
         cell = cell * spec.ncells[k] + cvec[..., k]
     sorted_cell, perm = torch.sort(cell, dim=-1, stable=True)
-    comps = torch.cat([xs.transpose(1, 2), system.species.to(dt)[:, None, :]], dim=1)
-    np_ = d + 1
+    comps = [xs.transpose(1, 2), system.species.to(dt)[:, None, :]]
+    mol_cols = _mol_columns(system)
+    if mol_cols is not None:
+        comps.append(mol_cols)
+    comps = torch.cat(comps, dim=1)
+    np_ = comps.shape[1]
     sorted_comps = torch.gather(comps, 2, perm[:, None, :].expand(B, np_, n))
     cells_iota = torch.arange(spec.total, device=dev).expand(B, spec.total).contiguous()
     first = torch.searchsorted(sorted_cell, cells_iota, side="left")
@@ -138,7 +193,7 @@ def rebin(system: SystemState, spec: CBSpec, shift):
     p = first[..., None] + torch.arange(spec.cap, device=dev)  # [B, cells, cap]
     valid = p < nxt[..., None]
     pc = torch.clamp(p, max=n - 1).reshape(B, -1)
-    fills = torch.tensor([0.0] * d + [-1.0], dtype=dt, device=dev)[None, :, None, None]
+    fills = torch.tensor([0.0] * d + [-1.0] * (np_ - d), dtype=dt, device=dev)[None, :, None, None]
     taken = torch.gather(sorted_comps, 2, pc[:, None, :].expand(B, np_, pc.shape[1]))
     planes = torch.where(
         valid[:, None], taken.reshape(B, np_, spec.total, spec.cap), fills
@@ -159,18 +214,22 @@ def rebin(system: SystemState, spec: CBSpec, shift):
     return planes, idx, slot, overflow
 
 
+def _unbin_planes(planes, idx, n: int):
+    """Scatter payload planes [B, k, cells, cap] back to particle order
+    [B, k, n] in one scatter; padding lanes go to a dropped column."""
+    B, k = planes.shape[:2]
+    flat_idx = idx.reshape(B, 1, -1)
+    tgt = torch.where(flat_idx >= 0, flat_idx, n).expand(B, k, -1)
+    cols = torch.zeros((B, k, n + 1), dtype=planes.dtype, device=planes.device)
+    cols.scatter_(2, tgt, planes.reshape(B, k, -1))
+    return cols[..., :n]
+
+
 def unbin_positions(planes, idx, n: int, shift, box):
     """Scatter payload positions back into global [B, N, d] positions."""
-    B = planes.shape[0]
     d = box.shape[-1]
-    flat_idx = idx.reshape(B, -1)
-    tgt = torch.where(flat_idx >= 0, flat_idx, n)  # padding goes to a dropped column
-    cols = []
-    for j in range(d):
-        col = torch.zeros((B, n + 1), dtype=planes.dtype, device=planes.device)
-        col.scatter_(1, tgt, planes[:, j].reshape(B, -1))
-        cols.append(col[:, :n] + shift[:, j : j + 1])
-    return fold_back(torch.stack(cols, dim=-1), box[:, None, :])
+    xs = _unbin_planes(planes[:, :d], idx, n) + shift[:, :, None]
+    return fold_back(xs.transpose(1, 2).contiguous(), box[:, None, :])
 
 
 def init_cb_state(system: SystemState, spec: CBSpec, seed, n_moves: int = 1) -> CBState:
@@ -238,6 +297,30 @@ def _slot_schedule(pool, C: int, inner: int):
     return np.asarray(sched, int).reshape(C, inner)
 
 
+def _is_gaussian(mv) -> bool:
+    return mv.action == "displacement" and mv.policy == "gaussian"
+
+
+def schedule_segments(schedule_row, pool, kernel: bool):
+    """Cut one colour's slot schedule into segments (start, stop, on_kernel):
+    with `kernel`, each maximal run of consecutive SimpleGaussian slots is
+    one segment for the kernel; every other slot is a segment of its own."""
+    segs = []
+    k = 0
+    inner = len(schedule_row)
+    while k < inner:
+        if kernel and _is_gaussian(pool[int(schedule_row[k])]):
+            stop = k
+            while stop < inner and _is_gaussian(pool[int(schedule_row[stop])]):
+                stop += 1
+            segs.append((k, stop, True))
+            k = stop
+        else:
+            segs.append((k, k + 1, False))
+            k += 1
+    return segs
+
+
 # ---------------------------------------------------------------------------
 # Grid pieces of a colour substep
 # ---------------------------------------------------------------------------
@@ -281,8 +364,10 @@ def _neighbour_offsets(d: int):
 
 
 def extract_colour(padded, spec: CBSpec, c):
-    """The kernel's packed lanes for colour `c`: packed_pos [B, d, A, LP] and
-    packed_sp [B, A, LP], centre cell first, then the 3^d - 1 neighbours."""
+    """Every plane of colour `c`'s active cells and their 3^d - 1 neighbours,
+    centre cell first: the kernel's packed_pos [B, d, A, LP] and packed_sp
+    [B, A, LP], and the molecular planes [B, NP - d - 1, A, LP] (None for an
+    atomic grid)."""
     B, NP = padded.shape[:2]
     d, A = spec.d, spec.n_active
     blocks = [
@@ -292,7 +377,8 @@ def extract_colour(padded, spec: CBSpec, c):
         for t in [(0,) * d] + _neighbour_offsets(d)
     ]
     packed = torch.cat(blocks, dim=-1)
-    return packed[:, :d].contiguous(), packed[:, d].contiguous()
+    aux = packed[:, d + 1 :] if NP > d + 1 else None
+    return packed[:, :d].contiguous(), packed[:, d].contiguous(), aux
 
 
 def cell_bounds(spec: CBSpec, box_row, c):
@@ -306,23 +392,27 @@ def cell_bounds(spec: CBSpec, box_row, c):
     return lo.contiguous(), (lo + side[:, None]).contiguous()
 
 
-def write_back(padded, spec: CBSpec, c, centre, box):
-    """Write the substep's centre positions into the grid and refresh one
-    halo face per dimension (sequential face copies also carry the corners),
-    image-corrected."""
+def write_back(padded, spec: CBSpec, c, centre, box, centre_sp=None):
+    """Write the substep's centre positions (and species, when the pool
+    changes them) into the grid and refresh one halo face per dimension of
+    those planes (sequential face copies also carry the corners),
+    image-corrected. The molecular planes never change."""
     B = padded.shape[0]
     d = spec.d
     csl = _colour_slices(spec, c, (0,) * d)
-    padded[(slice(None), slice(0, d)) + csl] = centre.reshape(
-        (B, d) + spec.active_dims + (spec.cap,)
-    )
+    shape = spec.active_dims + (spec.cap,)
+    padded[(slice(None), slice(0, d)) + csl] = centre.reshape((B, d) + shape)
+    n_live = d
+    if centre_sp is not None:
+        padded[(slice(None), d) + csl] = centre_sp.reshape((B,) + shape)
+        n_live = d + 1
     for k in range(d):
         nc_k = spec.ncells[k]
         if c[k] == 0:  # actives include grid coord 0: refresh the right halo
             src_i, dst_i, sign = 1, nc_k + 1, 1.0
         else:  # actives include grid coord nc-1: refresh the left halo
             src_i, dst_i, sign = nc_k, 0, -1.0
-        pre = (slice(None), slice(0, d)) + (slice(None),) * k
+        pre = (slice(None), slice(0, n_live)) + (slice(None),) * k
         src = padded[pre + (src_i,)].clone()
         corr = box[:, k].reshape((B,) + (1,) * (src.dim() - 2))
         src[:, k] = src[:, k] + (corr if sign > 0 else -corr)
@@ -330,19 +420,478 @@ def write_back(padded, spec: CBSpec, c, centre, box):
 
 
 # ---------------------------------------------------------------------------
+# Sub-moves other than the kernel's, on batched tensors: centre positions
+# [B, d, A, cap] and species [B, A, cap], the static neighbour lanes
+# [B, d, A, L] and [B, A, L], draws and decisions [B, A]. Pair parameters are
+# gathered from the packed [9, S, S] table of moves/cb_cuda.py::pack_table;
+# each sum runs over the centre lanes, then over the neighbour lanes.
+# ---------------------------------------------------------------------------
+
+_INT_FIELDS = ("kind", "ipl_n")
+# elements of one [B, A, cap, LP] member-energy buffer (EnergyBias); the
+# evaluation runs in chunks of chains within it
+_MEMBER_BUDGET = 1 << 22
+# the smart move's drift is clamped to this many sigmas per component
+_DRIFT_CLIP_SIGMAS = 2.0
+
+
+class _Tables:
+    """The pair table of one hyper-sweep call in the state's dtype and on its
+    device: packed for the kernel, flat per field for gathers, and the bond
+    fields for molecular systems."""
+
+    def __init__(self, table: PairTable, kinds, dt, dev, molecular: bool):
+        self.packed = pack_table(table, dt).to(dev)
+        self.S = table.n_species
+        self.kinds = kinds
+        self.fields = pair_fields_needed(kinds)
+        self.flat = self.packed.reshape(len(PAIR_FIELDS), -1)
+        self.bond = None
+        if molecular:
+            t = table.astype(dt)
+            self.bond = dataclasses.replace(
+                t, **{f.name: getattr(t, f.name).to(dev) for f in dataclasses.fields(t)}
+            )
+
+    def pair(self, sa, sb):
+        """Parameters of the species pairs (sa, sb), long tensors or ints."""
+        idx = sa * self.S + sb
+        out = {}
+        for f in self.fields:
+            v = self.flat[PAIR_FIELDS.index(f)][idx]
+            out[f] = v.to(torch.int32) if f in _INT_FIELDS else v
+        return _Params(**out)
+
+    def u(self, r2, p):
+        return pair_potential(r2, p, self.kinds)
+
+
+def _species_index(sp):
+    """Float species (-1 empty) as table indices; an empty lane reads row 0."""
+    return torch.clamp_min(sp, 0).long()
+
+
+def _sel(pick, plane):
+    """The picked lane of `plane` [..., A, cap] under a one-hot `pick`
+    [B, A, cap] (broadcast over a d axis): [..., A]."""
+    if plane.dim() == pick.dim() + 1:
+        pick = pick[:, None]
+    return torch.sum(torch.where(pick, plane, torch.zeros_like(plane)), dim=-1)
+
+
+def _r2(pos_nb, x):
+    """Squared plain differences [B, A, L] of lanes pos_nb [B, d, A, L] from
+    x [B, d, A], summed in dimension order."""
+    r2 = torch.zeros_like(pos_nb[:, 0])
+    for j in range(pos_nb.shape[1]):
+        dx = pos_nb[:, j] - x[:, j, :, None]
+        r2 = r2 + dx * dx
+    return r2
+
+
+def _masked_sum(valid, v):
+    return torch.sum(torch.where(valid, v, torch.zeros_like(v)), dim=-1)
+
+
+def _in_cell(x, lo, hi):
+    """x [B, d, A] inside [lo, hi) of its active cell."""
+    return ((x >= lo) & (x < hi)).all(dim=1)
+
+
+def _book(accept, de):
+    return torch.where(accept & torch.isfinite(de), de, torch.zeros_like(de))
+
+
+def _disp_submove_smart(
+    tabs, centre_pos, centre_sp, pos_o, sp_o, pick, xi, sigma, lo, hi, occupied,
+    log_ua, temperature,
+):
+    """One force-bias ("smart MC") displacement sub-move.
+
+    Proposal: delta = D(x_old) + sigma xi with drift D(x) = clamp(sigma^2 /
+    (2T) F(x), +-_DRIFT_CLIP_SIGMAS sigma) per component, F the force on the
+    mover from every valid lane. Acceptance: log a = -dE/T + [|delta -
+    D(x_old)|^2 - |delta + D(x_new)|^2] / (2 sigma^2), the exact asymmetry
+    correction with the reverse drift at the proposed position. A proposal
+    that leaves the cell is rejected; both q factors are the unconstrained
+    Gaussians, so the in-cell truncation keeps detailed balance.
+    Returns (centre_pos', booked [B, A], accept [B, A])."""
+    t = temperature[:, None]
+    x_a = _sel(pick, centre_pos)
+    s_a = _species_index(_sel(pick, centre_sp))[..., None]
+    groups = (
+        (centre_pos, centre_sp, (centre_sp >= 0) & ~pick),
+        (pos_o, sp_o, sp_o >= 0),
+    )
+
+    def energy_and_force(x):
+        e = torch.zeros_like(x[:, 0])
+        f = torch.zeros_like(x)
+        for pos_nb, sp_nb, valid in groups:
+            p = tabs.pair(s_a, _species_index(sp_nb))
+            dx = pos_nb - x[..., None]
+            r2 = _r2(pos_nb, x)
+            u = tabs.u(r2, p)
+            w = pair_virial(r2, p, tabs.kinds)
+            g = -w / torch.clamp_min(r2, 1e-12)  # F_j = g dx_j
+            e = e + _masked_sum(valid, u)
+            f = f + _masked_sum(valid[:, None], g[:, None] * dx)
+        return e, f
+
+    sig2_2t = (sigma * sigma / (2.0 * temperature))[:, None, None]
+    clip = _DRIFT_CLIP_SIGMAS * sigma
+
+    def drift(f):
+        return torch.clamp(sig2_2t * f, -clip, clip)
+
+    e_old, f_old = energy_and_force(x_a)
+    d_old = drift(f_old)
+    delta = d_old + sigma * xi
+    x_new = x_a + delta
+    in_cell = occupied & _in_cell(x_new, lo, hi)
+    e_new, f_new = energy_and_force(x_new)
+    d_new = drift(f_new)
+    de = e_new - e_old
+    lq = torch.zeros_like(de)
+    for j in range(x_a.shape[1]):
+        fwd = delta[:, j] - d_old[:, j]  # = sigma xi_j
+        rev = delta[:, j] + d_new[:, j]
+        lq = lq + (fwd * fwd - rev * rev)
+    log_alpha = -de / t + lq / (2.0 * sigma * sigma)
+    log_alpha = torch.where(torch.isnan(log_alpha), torch.full_like(log_alpha, -math.inf), log_alpha)
+    accept = (log_ua < log_alpha) & in_cell
+    moved = (pick & accept[..., None])[:, None]
+    centre_pos = torch.where(moved, x_new[..., None], centre_pos)
+    return centre_pos, _book(accept, de), accept
+
+
+def _swap_pair_de(tabs, s1, s2, centre_pos, centre_sp, pos_o, sp_o, pick_i, pick_j):
+    """ΔE of swapping the species of the picked pair (i: s1 -> s2 at x_i,
+    j: s2 -> s1 at x_j). Both sums exclude i and j: the mutual pair term
+    cancels exactly by table symmetry. Returns de [B, A]."""
+    x_i = _sel(pick_i, centre_pos)
+    x_j = _sel(pick_j, centre_pos)
+    de = torch.zeros_like(x_i[:, 0])
+    for pos_nb, sp_nb, valid in (
+        (centre_pos, centre_sp, (centre_sp >= 0) & ~pick_i & ~pick_j),
+        (pos_o, sp_o, sp_o >= 0),
+    ):
+        nb = _species_index(sp_nb)
+        p_a = tabs.pair(s1, nb)
+        p_b = tabs.pair(s2, nb)
+        r2i = _r2(pos_nb, x_i)
+        r2j = _r2(pos_nb, x_j)
+        du = tabs.u(r2i, p_b) - tabs.u(r2i, p_a) + tabs.u(r2j, p_a) - tabs.u(r2j, p_b)
+        de = de + _masked_sum(valid, du)
+    return de
+
+
+def _apply_swap(centre_sp, pick_i, pick_j, accept, s1, s2):
+    return torch.where(
+        pick_i & accept[..., None],
+        torch.full_like(centre_sp, float(s2)),
+        torch.where(pick_j & accept[..., None], torch.full_like(centre_sp, float(s1)), centre_sp),
+    )
+
+
+def _swap_submove_atomic(
+    tabs, s1, s2, centre_pos, centre_sp, pos_o, sp_o, up, up2, log_ua, temperature,
+):
+    """One in-cell DiscreteSwap/DoubleUniform sub-move: i uniform among the
+    cell's s1 members (by `up`), j among its s2 members (by `up2`); a cell
+    missing either species rejects. Returns (centre_sp', booked, accept)."""
+    dt = centre_sp.dtype
+    memb1 = centre_sp == float(s1)
+    memb2 = centre_sp == float(s2)
+    n1 = memb1.sum(dim=-1)
+    n2 = memb2.sum(dim=-1)
+    r1 = torch.floor(up * n1.to(dt)).long()
+    r2 = torch.floor(up2 * n2.to(dt)).long()
+    rank1 = torch.cumsum(memb1.long(), dim=-1) - 1
+    rank2 = torch.cumsum(memb2.long(), dim=-1) - 1
+    pick_i = memb1 & (rank1 == r1[..., None])
+    pick_j = memb2 & (rank2 == r2[..., None])
+    valid_sw = (n1 > 0) & (n2 > 0)
+    de = _swap_pair_de(tabs, s1, s2, centre_pos, centre_sp, pos_o, sp_o, pick_i, pick_j)
+    accept = valid_sw & (log_ua < -de / temperature[:, None])
+    return _apply_swap(centre_sp, pick_i, pick_j, accept, s1, s2), _book(accept, de), accept
+
+
+def _cell_member_energies(tabs, centre_pos, centre_sp, pos_o, sp_o):
+    """Local energies E [B, A, cap] of every centre lane against the whole
+    3^d neighbourhood (own cell without itself, then the static neighbour
+    lanes): the input of the EnergyBias softmax. The [B, A, cap, LP] pair
+    buffers are evaluated in chunks of chains (_MEMBER_BUDGET)."""
+    B, A, cap = centre_sp.shape
+    L = pos_o.shape[-1]
+    chunk = max(1, _MEMBER_BUDGET // max(1, A * cap * (cap + L)))
+    not_self = ~torch.eye(cap, dtype=torch.bool, device=centre_sp.device)
+    out = []
+    for b0 in range(0, B, chunk):
+        cp, cs = centre_pos[b0 : b0 + chunk], centre_sp[b0 : b0 + chunk]
+        po, so = pos_o[b0 : b0 + chunk], sp_o[b0 : b0 + chunk]
+        valid_c = cs >= 0
+        sa = _species_index(cs)
+        r2cc = torch.zeros(cs.shape + (cap,), dtype=cp.dtype, device=cp.device)
+        r2co = torch.zeros(cs.shape + (L,), dtype=cp.dtype, device=cp.device)
+        for j in range(cp.shape[1]):
+            dx = cp[:, j, :, :, None] - cp[:, j, :, None, :]
+            r2cc = r2cc + dx * dx
+            dx = po[:, j, :, None, :] - cp[:, j, :, :, None]
+            r2co = r2co + dx * dx
+        ucc = tabs.u(r2cc, tabs.pair(sa[..., :, None], sa[..., None, :]))
+        mcc = valid_c[..., :, None] & valid_c[..., None, :] & not_self
+        e = _masked_sum(mcc, ucc)
+        uco = tabs.u(r2co, tabs.pair(sa[..., :, None], _species_index(so)[..., None, :]))
+        mco = valid_c[..., :, None] & (so >= 0)[..., None, :]
+        out.append(e + _masked_sum(mco, uco))
+    return torch.cat(out, dim=0)
+
+
+def _softmax_pick(logits, memb, u):
+    """Inverse-CDF categorical over the masked softmax of `logits`
+    [..., cap] restricted to `memb`, driven by one uniform u [...] per cell.
+    Returns (one-hot pick, log-prob of the picked lane). A cell with no
+    member returns an all-false pick (the caller rejects it)."""
+    neg = torch.full_like(logits, -math.inf)
+    lv = torch.where(memb, logits, neg)
+    m = torch.amax(lv, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.where(memb, torch.exp(lv - m), torch.zeros_like(logits))
+    tot = torch.sum(w, dim=-1, keepdim=True)
+    cum = torch.cumsum(w, dim=-1)
+    thr = u[..., None] * tot  # u in [0, 1): thr < tot, so exactly one lane hits
+    pick = memb & (cum > thr) & ((cum - w) <= thr)
+    # ties on equal cumsum plateaus (w == 0 runs) resolve to the first lane
+    pick = pick & (torch.cumsum(pick.long(), dim=-1) == 1)
+    tiny = torch.finfo(logits.dtype).tiny
+    logp = torch.sum(torch.where(pick, lv, torch.zeros_like(lv)), dim=-1) - (
+        m[..., 0] + torch.log(torch.clamp_min(tot[..., 0], tiny))
+    )
+    return pick, logp
+
+
+def _logsumexp_masked(lv):
+    tiny = torch.finfo(lv.dtype).tiny
+    m = torch.amax(lv, dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return m[..., 0] + torch.log(torch.clamp_min(torch.sum(torch.exp(lv - m), dim=-1), tiny))
+
+
+def _swap_submove_energy_bias(
+    tabs, s1, s2, centre_pos, centre_sp, pos_o, sp_o, th1, th2, up, up2, log_ua, temperature,
+):
+    """One in-cell DiscreteSwap/EnergyBias sub-move: i drawn from the cell's
+    s1 members with probability ∝ exp(th1 E_i), j from its s2 members ∝
+    exp(th2 E_j), E the members' local energies. The proposal is asymmetric;
+    the reverse density is evaluated in the post-swap configuration (i now
+    s2, j now s1) over the same populations, so Metropolis-Hastings is
+    exact. A NaN log-acceptance (for instance th = 0 against an infinite
+    energy) rejects. Returns (centre_sp', booked, accept)."""
+    memb1 = centre_sp == float(s1)
+    memb2 = centre_sp == float(s2)
+    valid_sw = memb1.any(dim=-1) & memb2.any(dim=-1)
+    e_pre = _cell_member_energies(tabs, centre_pos, centre_sp, pos_o, sp_o)
+    pick_i, lp_i = _softmax_pick(th1 * e_pre, memb1, up)
+    pick_j, lp_j = _softmax_pick(th2 * e_pre, memb2, up2)
+    log_q_fwd = lp_i + lp_j
+    de = _swap_pair_de(tabs, s1, s2, centre_pos, centre_sp, pos_o, sp_o, pick_i, pick_j)
+
+    # reverse density in the post-swap configuration
+    centre_sp2 = _apply_swap(centre_sp, pick_i, pick_j, torch.ones_like(valid_sw), s1, s2)
+    e_post = _cell_member_energies(tabs, centre_pos, centre_sp2, pos_o, sp_o)
+    neg = torch.full_like(e_post, -math.inf)
+    l1 = torch.where(centre_sp2 == float(s1), th1 * e_post, neg)
+    l2 = torch.where(centre_sp2 == float(s2), th2 * e_post, neg)
+    zero = torch.zeros_like(e_post)
+    lp_rev_j = torch.sum(torch.where(pick_j, th1 * e_post, zero), dim=-1) - _logsumexp_masked(l1)
+    lp_rev_i = torch.sum(torch.where(pick_i, th2 * e_post, zero), dim=-1) - _logsumexp_masked(l2)
+    log_q_rev = lp_rev_j + lp_rev_i
+
+    log_alpha = -de / temperature[:, None] + log_q_rev - log_q_fwd
+    log_alpha = torch.where(torch.isnan(log_alpha), torch.full_like(log_alpha, -math.inf), log_alpha)
+    accept = valid_sw & (log_ua < log_alpha)
+    return _apply_swap(centre_sp, pick_i, pick_j, accept, s1, s2), _book(accept, de), accept
+
+
+class _Molecular:
+    """The bond bookkeeping of one colour substep on a molecular grid. The
+    id, bond-partner and molecule-layout planes never change in a substep;
+    a bonded partner is found by id inside the extracted blocks."""
+
+    def __init__(self, tabs, aux, cap, max_bonds):
+        self.tabs = tabs
+        self.cap = cap
+        ids = aux[:, 0]
+        self.centre_id, self.other_id = ids[..., :cap], ids[..., cap:]
+        self.centre_bonds = [aux[:, 1 + b, :, :cap] for b in range(max_bonds)]
+        self.centre_ms = aux[:, 1 + max_bonds, :, :cap]
+        self.centre_ml = aux[:, 2 + max_bonds, :, :cap]
+
+    @staticmethod
+    def bond_excl(ids_nb, partners):
+        """Lanes that are bonded partners of the mover (left out of the
+        non-bonded sum)."""
+        m = torch.zeros(ids_nb.shape, dtype=torch.bool, device=ids_nb.device)
+        for pb in partners:
+            m = m | ((ids_nb == pb[..., None]) & (pb[..., None] >= 0))
+        return m
+
+    def find_by_id(self, pid, centre_pos, centre_sp, pos_o, sp_o):
+        """Position [B, d, A], species and found flag [B, A] of particle
+        `pid` [B, A] in the blocks (halos are image-corrected, so the
+        position is directly usable in plain differences)."""
+        mc = (self.centre_id == pid[..., None]) & (pid[..., None] >= 0)
+        mo = (self.other_id == pid[..., None]) & (pid[..., None] >= 0)
+        xp = _sel(mc, centre_pos) + _sel(mo, pos_o)
+        sp_p = _sel(mc, centre_sp) + _sel(mo, sp_o)
+        return xp, sp_p, mc.any(dim=-1) | mo.any(dim=-1)
+
+    def bond_delta(self, x_old, x_new, s_old, s_new, partners, skip_id, live):
+        """Σ_b [u_bond(new) - u_bond(old)] over the mover's bond partners;
+        +inf (a rejection) if a live partner is not in the blocks. `skip_id`
+        leaves out the mutual bond of a flip pair (it cancels by table
+        symmetry). Position and species may both change."""
+        de_b = torch.zeros_like(s_old)
+        for pb in partners:
+            act = pb >= 0
+            if skip_id is not None:
+                act = act & (pb != skip_id)
+            xp, sp_p, found = self.find_by_id(pb, *live)
+            r2o = torch.zeros_like(s_old)
+            r2n = torch.zeros_like(s_old)
+            for j in range(x_old.shape[1]):
+                dxo = xp[:, j] - x_old[:, j]
+                dxn = xp[:, j] - x_new[:, j]
+                r2o = r2o + dxo * dxo
+                r2n = r2n + dxn * dxn
+            tab = self.tabs.bond
+            nb = _species_index(sp_p)
+            po = gather_pair(tab, _species_index(s_old), nb, BOND_FIELDS)
+            pn = gather_pair(tab, _species_index(s_new), nb, BOND_FIELDS)
+            du = bond_potential(r2n, pn) - bond_potential(r2o, po)
+            du = torch.where(found, du, torch.full_like(du, math.inf))
+            de_b = de_b + torch.where(act, du, torch.zeros_like(du))
+        return de_b
+
+    def displacement(self, centre_pos, centre_sp, pos_o, sp_o, pick, delta, lo, hi, occupied,
+                     log_ua, temperature):
+        """One molecular Gaussian displacement sub-move: the non-bonded ΔE
+        without the mover's bonded partners, plus the FENE + LJ bond delta.
+        Returns (centre_pos', booked, accept)."""
+        tabs = self.tabs
+        x_a = _sel(pick, centre_pos)
+        s_a = _sel(pick, centre_sp)
+        x_new = x_a + delta
+        in_cell = occupied & _in_cell(x_new, lo, hi)
+        partners = [_sel(pick, b) for b in self.centre_bonds]
+        sa = _species_index(s_a)[..., None]
+        de = torch.zeros_like(s_a)
+        for pos_nb, ids_nb, sp_nb, valid in (
+            (centre_pos, self.centre_id, centre_sp, (centre_sp >= 0) & ~pick),
+            (pos_o, self.other_id, sp_o, sp_o >= 0),
+        ):
+            valid = valid & ~self.bond_excl(ids_nb, partners)
+            p = tabs.pair(sa, _species_index(sp_nb))
+            du = tabs.u(_r2(pos_nb, x_new), p) - tabs.u(_r2(pos_nb, x_a), p)
+            de = de + _masked_sum(valid, du)
+        live = (centre_pos, centre_sp, pos_o, sp_o)
+        de = de + self.bond_delta(x_a, x_new, s_a, s_a, partners, None, live)
+        accept = (log_ua < -de / temperature[:, None]) & in_cell
+        moved = (pick & accept[..., None])[:, None]
+        centre_pos = torch.where(moved, x_new[..., None], centre_pos)
+        return centre_pos, _book(accept, de), accept
+
+    def flip(self, centre_pos, centre_sp, pos_o, sp_o, pick, up2, occupied, log_ua, temperature):
+        """One cell-local MoleculeFlip sub-move: i is the picked lane; its
+        partner site j is uniform over the other members of i's molecule
+        (skipping i's own rank); a flip whose j is not in the same cell, or
+        whose species agree, rejects. The selection is symmetric: the flip
+        moves nothing. Returns (centre_sp', booked, accept)."""
+        tabs = self.tabs
+        dt = centre_sp.dtype
+        x_i = _sel(pick, centre_pos)
+        s_i = _sel(pick, centre_sp)
+        id_i = _sel(pick, self.centre_id)
+        ms, ml = _sel(pick, self.centre_ms), _sel(pick, self.centre_ml)
+        partners_i = [_sel(pick, b) for b in self.centre_bonds]
+        lm1 = torch.clamp_min(ml - 1.0, 1.0)
+        off = torch.floor(up2 * lm1)
+        off = off + (off >= (id_i - ms)).to(dt)
+        pj = ms + off
+        match_j = (self.centre_id == pj[..., None]) & occupied[..., None]
+        found_j = match_j.any(dim=-1)
+        x_j = _sel(match_j, centre_pos)
+        s_j = _sel(match_j, centre_sp)
+        partners_j = [_sel(match_j, b) for b in self.centre_bonds]
+        valid_fl = occupied & (ml > 1.5) & found_j & (s_i != s_j)
+
+        # species of i and j exchange, positions fixed; the mutual term
+        # cancels, so ΔE = Δ_i + Δ_j, each without the pair and its own
+        # bonded partners
+        si = _species_index(s_i)[..., None]
+        sj = _species_index(s_j)[..., None]
+        de = torch.zeros_like(s_i)
+        for pos_nb, ids_nb, sp_nb, valid in (
+            (centre_pos, self.centre_id, centre_sp, (centre_sp >= 0) & ~pick & ~match_j),
+            (pos_o, self.other_id, sp_o, sp_o >= 0),
+        ):
+            nb = _species_index(sp_nb)
+            p_i = tabs.pair(si, nb)
+            p_j = tabs.pair(sj, nb)
+            excl_i = self.bond_excl(ids_nb, partners_i)
+            excl_j = self.bond_excl(ids_nb, partners_j)
+            r2i = _r2(pos_nb, x_i)
+            r2j = _r2(pos_nb, x_j)
+            du_i = tabs.u(r2i, p_j) - tabs.u(r2i, p_i)
+            du_j = tabs.u(r2j, p_i) - tabs.u(r2j, p_j)
+            de = de + _masked_sum(valid & ~excl_i, du_i)
+            de = de + _masked_sum(valid & ~excl_j, du_j)
+        live = (centre_pos, centre_sp, pos_o, sp_o)
+        de = de + self.bond_delta(x_i, x_i, s_i, s_j, partners_i, pj, live)
+        de = de + self.bond_delta(x_j, x_j, s_j, s_i, partners_j, id_i, live)
+        accept = valid_fl & (log_ua < -de / temperature[:, None])
+        centre_sp = torch.where(
+            pick & accept[..., None],
+            s_j[..., None].expand_as(centre_sp),
+            torch.where(match_j & accept[..., None], s_i[..., None].expand_as(centre_sp), centre_sp),
+        )
+        return centre_sp, _book(accept, de), accept
+
+
+# ---------------------------------------------------------------------------
 # The hyper-sweep
 # ---------------------------------------------------------------------------
 
 
-def _check_pool(pool):
+# profiler range around each sub-move that is not the kernel's, by kind
+SUBMOVE_RANGE = "cb_submove."
+
+
+def submove_kind(mv) -> str:
+    """The name of a non-kernel sub-move in the profiler: smart,
+    molecular_displacement, double_uniform, energy_bias or flip."""
+    if mv.action == "displacement":
+        return "smart" if mv.policy == "smart" else "molecular_displacement"
+    return mv.policy if mv.action == "swap" else "flip"
+
+
+def check_pool(pool, molecular: bool):
+    """Refuse a move the checkerboard backend does not run (as the JAX
+    package does): SmartGaussian and swaps need an atomic system, flips a
+    molecular one."""
     for mv in pool:
-        if mv.action == "displacement" and mv.policy == "gaussian":
-            continue
-        if mv.action == "displacement":
-            raise unported("SmartGaussian displacement on the checkerboard", 6)
-        if mv.action == "swap":
-            raise unported("DiscreteSwap moves on the checkerboard", 6)
-        raise unported("MoleculeFlip moves (molecular systems)", 7)
+        ok = (
+            (mv.action == "displacement" and (mv.policy != "smart" or not molecular))
+            or (mv.action == "swap" and mv.policy in ("double_uniform", "energy_bias") and not molecular)
+            or (mv.action == "flip" and molecular)
+        )
+        if not ok:
+            raise ValueError(
+                f"checkerboard backend does not support {mv.action}/{mv.policy}"
+                + (" on molecular systems" if molecular else "")
+                + " — use the sequential kernel (parallel_moves=false)"
+            )
 
 
 def build_hyper_sweep_fn(
@@ -353,26 +902,35 @@ def build_hyper_sweep_fn(
     inner: int = 4,
     sweeps: int = 1,
     pool=None,
+    max_bonds: int = 0,
 ):
     """Returns `hyper_sweep(cb, pool_params, *, shift=None, up=None,
-    ua=None, dl=None) -> CBState`: one rebin under a new grid shift, then
-    `sweeps` hyper-sweeps of ~sweepstep (default n) attempted moves each,
-    then one unbin of the positions.
+    ua=None, dl=None, up2=None) -> CBState`: one rebin under a new grid
+    shift, then `sweeps` hyper-sweeps of ~sweepstep (default n) attempted
+    moves each, then one unbin of the positions (and species, when the pool
+    changes them).
 
     A hyper-sweep is `rounds` rounds of the 2^d colour substeps with
-    A * inner sub-moves each. `pool` is a tuple of Gaussian displacement
-    Moves; `pool_params` its parameter dicts (moves.base.init_pool_params).
+    A * inner sub-moves each. `pool` is a tuple of Moves (moves/base.py);
+    `pool_params` its parameter dicts (moves.base.init_pool_params).
+    `max_bonds` is the bond-list width of a molecular system (0 for atoms);
+    the grid of a molecular system must then be sized on
+    tables.interaction_range.
 
     The randomness can be injected so that a test can give this port and the
     JAX package the same numbers: `shift` [B, d] (in units of the box),
-    `up`/`ua` [B, R, C, inner, A] uniforms and `dl` [B, R, C, inner, d, A]
-    standard normals, with R = sweeps * rounds and C = 2^d. Otherwise they
-    are drawn from `cb.generator`, one round at a time.
+    `up`/`ua` [B, R, C, inner, A] uniforms, `dl` [B, R, C, inner, d, A]
+    standard normals and, for a pool with a swap or a flip, `up2`
+    [B, R, C, inner, A] (the second pick), with R = sweeps * rounds and
+    C = 2^d. Otherwise they are drawn from `cb.generator` one round at a
+    time: up, ua, dl, then up2 only for such a pool, so that an
+    all-displacement pool's stream does not depend on it.
     """
     from .base import displacement
 
     d = spec.d
     A = spec.n_active
+    cap = spec.cap
     inner = max(1, int(inner))
     sweeps = max(1, int(sweeps))
     C = 2**d
@@ -380,44 +938,79 @@ def build_hyper_sweep_fn(
     rounds = max(1, -(-int(sweepstep or n) // (A * inner * C)))
     R = sweeps * rounds
     pool = tuple(pool) if pool is not None else (displacement(1.0),)
-    _check_pool(pool)
+    molecular = max_bonds > 0
+    check_pool(pool, molecular)
     n_moves = len(pool)
+    species_live = any(mv.action in ("swap", "flip") for mv in pool)
     schedule = _slot_schedule(pool, C, inner)
     kinds = kinds_present(table)  # once here: it reads the table on the host
-    # sub-move slots of each move within a colour, for the counters
-    slots_of = [
-        [[i for i in range(inner) if int(schedule[ci][i]) == m] for m in range(n_moves)]
+    rows = schedule.tolist()
+    # each colour's segments, with each move's slots relative to the
+    # segment's start (for the counters)
+    segments = [
+        [
+            (k0, k1, on, [(m, [k - k0 for k in range(k0, k1) if rows[ci][k] == m])
+                          for m in sorted(set(rows[ci][k0:k1]))])
+            for k0, k1, on in schedule_segments(rows[ci], pool, kernel=not molecular)
+        ]
         for ci in range(C)
     ]
+    on_kernel = any(seg[2] for segs in segments for seg in segs)
+    # colours with a slot that is not the kernel's: they need each cell's
+    # occupancy for the pick
+    has_other = [any(not seg[2] for seg in segs) for segs in segments]
+    # each slot's index into the SimpleGaussian moves' sigmas; other slots
+    # take the first, since the kernel never reads their draws
+    gauss = [m for m, mv in enumerate(pool) if _is_gaussian(mv)]
+    sigma_idx = np.asarray([[gauss.index(m) if m in gauss else 0 for m in row] for row in rows])
 
-    def hyper_sweep(cb: CBState, pool_params, *, shift=None, up=None, ua=None, dl=None):
+    def hyper_sweep(cb: CBState, pool_params, *, shift=None, up=None, ua=None, dl=None, up2=None):
         system = cb.system
         B = system.n_chains
         dt = system.position.dtype
         dev = system.position.device
         gen = cb.generator
         box = system.box
-        tab = pack_table(table, dt).to(dev)
+        tabs = _Tables(table, kinds, dt, dev, molecular)
         injected = [x is not None for x in (up, ua, dl)]
         if any(injected) and not all(injected):
             raise ValueError("inject up, ua and dl together")
+        if up2 is not None and not species_live:
+            raise ValueError("up2 is drawn only for pools with a swap or a flip")
+        if all(injected) and species_live and up2 is None:
+            raise ValueError("a pool with a swap or a flip needs up2 with up, ua and dl")
         if shift is None:
             shift = torch.rand((B, d), generator=gen, dtype=dt, device=dev)
         shift = shift * box
         planes0, idx, slot, ovf = rebin(system, spec, shift)
         padded = pad_grid(planes0, spec, box)
 
-        sigmas = torch.stack([p["sigma"] for p in pool_params]).to(dev, dt)
-        sigma_slot = sigmas[torch.as_tensor(schedule, device=dev)]  # [C, inner]
+        sigmas = [
+            p["sigma"].to(dev, dt) if mv.action == "displacement" else None
+            for mv, p in zip(pool, pool_params)
+        ]
+        thetas = [
+            (p["theta1"].to(dev, dt), p["theta2"].to(dev, dt)) if mv.policy == "energy_bias" else None
+            for mv, p in zip(pool, pool_params)
+        ]
+        if on_kernel:
+            sigma_slot = torch.stack([sigmas[m] for m in gauss])[torch.as_tensor(sigma_idx, device=dev)]
         neg_t = -system.temperature[:, None, None, None]
         bounds = [cell_bounds(spec, box[0], c) for c in cols]
+        if any(has_other):
+            slot_iota = torch.arange(cap, device=dev)
         energy = system.energy.clone()
         att = torch.zeros((B, n_moves), dtype=torch.int64, device=dev)
         acc = torch.zeros((B, n_moves), dtype=torch.int64, device=dev)
 
+        def count(m, occupied_cells, accepted):
+            att[:, m] += occupied_cells
+            acc[:, m] += accepted
+
         for r in range(R):
             if up is not None:
                 up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
+                up2_r = up2[:, r] if up2 is not None else None
             else:
                 shape = (B, C, inner, A)
                 up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
@@ -426,27 +1019,91 @@ def build_hyper_sweep_fn(
                     torch.finfo(dt).tiny,
                 )
                 dl_r = torch.randn((B, C, inner, d, A), generator=gen, dtype=dt, device=dev)
-            # fold sigma and the temperature into the draws: the kernel
-            # compares ΔE with thr = -T log(u) and moves by dl * sigma
-            thr_r = neg_t * torch.log(ua_r)
-            dl_r = dl_r * sigma_slot[None, :, :, None, None]
+                up2_r = None
+                if species_live:  # second per-cell pick (swap or flip partner)
+                    up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+            log_ua_r = torch.log(ua_r)
+            if on_kernel:
+                # fold sigma and the temperature into the kernel's draws: it
+                # compares ΔE with thr = -T log(u) and moves by dl * sigma
+                thr_r = neg_t * log_ua_r
+                dls_r = dl_r * sigma_slot[None, :, :, None, None]
             for ci, c in enumerate(cols):
-                packed_pos, packed_sp = extract_colour(padded, spec, c)
+                pos, sp, aux = extract_colour(padded, spec, c)
                 lo, hi = bounds[ci]
-                centre, booked, acc_k = disp_substep(
-                    packed_pos, packed_sp,
-                    up_r[:, ci].contiguous(), dl_r[:, ci].contiguous(),
-                    thr_r[:, ci].contiguous(), lo, hi, tab, kinds=kinds,
-                )
-                write_back(padded, spec, c, centre, box)
-                energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
-                occupied = torch.sum(
-                    torch.any(packed_sp[..., : spec.cap] >= 0, dim=-1), dim=-1
-                )  # [B] occupied active cells
-                for m, slots_m in enumerate(slots_of[ci]):
-                    if slots_m:
-                        att[:, m] += occupied * len(slots_m)
-                        acc[:, m] += torch.sum(acc_k[..., slots_m], dim=(1, 2))
+                mol = _Molecular(tabs, aux, cap, max_bonds) if molecular else None
+                if has_other[ci]:
+                    occ = torch.sum(sp[..., :cap] >= 0, dim=-1)  # [B, A]; static in the substep
+                    occupied = occ > 0
+                    occupied_cells = occupied.sum(dim=-1)  # [B]
+                centre = None  # the kernel's last centre positions, not yet in `pos`
+                # the kernel runs' accepts, counted after the write-back: the
+                # counters' index copy waits for the device, so the host
+                # issues the write-back while the kernel still runs
+                kernel_accepts = []
+                for k0, k1, kernel_run, moves in segments[ci]:
+                    if centre is not None:
+                        pos[..., :cap] = centre
+                        centre = None
+                    if kernel_run:
+                        centre, booked, acc_k = disp_substep(
+                            pos, sp,
+                            up_r[:, ci, k0:k1].contiguous(), dls_r[:, ci, k0:k1].contiguous(),
+                            thr_r[:, ci, k0:k1].contiguous(), lo, hi, tabs.packed, kinds=kinds,
+                        )
+                        energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
+                        kernel_accepts.append((moves, acc_k))
+                        continue
+                    k = k0
+                    m = rows[ci][k]
+                    mv = pool[m]
+                    cpos, csp = pos[..., :cap], sp[..., :cap]
+                    opos, osp = pos[..., cap:], sp[..., cap:]
+                    log_ua = log_ua_r[:, ci, k]
+                    temperature = system.temperature
+                    if mv.action != "swap":  # floor(u * occ) is uniform over [0, occ)
+                        pick = slot_iota == torch.floor(up_r[:, ci, k] * occ.to(dt)).long()[..., None]
+                    with torch.profiler.record_function(SUBMOVE_RANGE + submove_kind(mv)):
+                        if mv.action == "displacement" and mv.policy == "smart":
+                            new_pos, booked, accept = _disp_submove_smart(
+                                tabs, cpos, csp, opos, osp, pick, dl_r[:, ci, k], sigmas[m],
+                                lo, hi, occupied, log_ua, temperature,
+                            )
+                            pos[..., :cap] = new_pos
+                        elif mv.action == "displacement":
+                            new_pos, booked, accept = mol.displacement(
+                                cpos, csp, opos, osp, pick, sigmas[m] * dl_r[:, ci, k],
+                                lo, hi, occupied, log_ua, temperature,
+                            )
+                            pos[..., :cap] = new_pos
+                        elif mv.policy == "energy_bias":
+                            new_sp, booked, accept = _swap_submove_energy_bias(
+                                tabs, *mv.species, cpos, csp, opos, osp, *thetas[m],
+                                up_r[:, ci, k], up2_r[:, ci, k], log_ua, temperature,
+                            )
+                            sp[..., :cap] = new_sp
+                        elif mv.action == "swap":
+                            new_sp, booked, accept = _swap_submove_atomic(
+                                tabs, *mv.species, cpos, csp, opos, osp,
+                                up_r[:, ci, k], up2_r[:, ci, k], log_ua, temperature,
+                            )
+                            sp[..., :cap] = new_sp
+                        else:
+                            new_sp, booked, accept = mol.flip(
+                                cpos, csp, opos, osp, pick, up2_r[:, ci, k], occupied, log_ua,
+                                temperature,
+                            )
+                            sp[..., :cap] = new_sp
+                    energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
+                    count(m, occupied_cells, accept.sum(dim=-1))
+                if centre is None:
+                    centre = pos[..., :cap]
+                write_back(padded, spec, c, centre, box, sp[..., :cap] if species_live else None)
+                if kernel_accepts and not has_other[ci]:
+                    occupied_cells = torch.sum(torch.any(sp[..., :cap] >= 0, dim=-1), dim=-1)  # [B]
+                for moves, acc_k in kernel_accepts:
+                    for m, rel in moves:
+                        count(m, occupied_cells * len(rel), torch.sum(acc_k[..., rel], dim=(1, 2)))
 
         interior = (slice(None), slice(None)) + (slice(1, -1),) * d
         planes = padded[interior].reshape(planes0.shape)
@@ -457,8 +1114,13 @@ def build_hyper_sweep_fn(
         ok = ~ovf
         ok2 = ok[:, None]
         ok4 = ok[:, None, None, None]
+        species = system.species
+        if species_live:
+            species = _unbin_planes(planes[:, d : d + 1], idx, n)[:, 0].to(species.dtype)
+            species = torch.where(ok2, species, system.species)
         system = system.replace(
             position=torch.where(ok[:, None, None], position, system.position),
+            species=species,
             energy=torch.where(ok, energy, system.energy),
         )
         return cb.replace(

@@ -266,12 +266,34 @@ def test_two_move_pool_matches_jax():
 
 
 def test_unported_pools_raise():
+    """Every pool the JAX package's checkerboard backend runs builds; the
+    combinations it refuses (smart or swap moves on a molecular system, a
+    flip on an atomic one) raise ValueError in both packages."""
     tspec = TCB.CBSpec((4, 4), 8)
-    table = TT.KobAndersen(device="cpu")
-    for mv, item in [
-        (TMB.Move("displacement", "smart", 1.0, params=(("sigma", 0.1),)), "item 6"),
-        (TMB.Move("swap", "double_uniform", 1.0, species=(0, 1)), "item 6"),
-        (TMB.Move("flip", "double_uniform", 1.0), "item 7"),
+    spec = JCB.CBSpec((4, 4), 8)
+    table, jt = TT.KobAndersen(device="cpu"), JT.KobAndersen()
+    smart = (TMB.displacement_smart(0.1), JMB.displacement_smart(0.1))
+    swap = (TMB.discrete_swap(0, 1, 1.0), JMB.discrete_swap(0, 1, 1.0))
+    bias = (
+        TMB.discrete_swap(0, 1, 1.0, policy="energy_bias", theta1=0.5),
+        JMB.discrete_swap(0, 1, 1.0, policy="energy_bias", theta1=0.5),
+    )
+    flip = (TMB.molecule_flip(1.0), JMB.molecule_flip(1.0))
+    for (t_mv, j_mv), max_bonds, ok in [
+        (smart, 0, True), (swap, 0, True), (bias, 0, True), (flip, 2, True),
+        (smart, 2, False), (swap, 2, False), (bias, 2, False), (flip, 0, False),
     ]:
-        with pytest.raises(NotImplementedError, match=item):
-            TCB.build_hyper_sweep_fn(tspec, table, 100, pool=(TMB.displacement(0.1), mv))
+        builds = [
+            lambda: TCB.build_hyper_sweep_fn(
+                tspec, table, 100, pool=(TMB.displacement(0.1), t_mv), max_bonds=max_bonds
+            ),
+            lambda: JCB.build_hyper_sweep_fn(
+                spec, jt, 100, pool=(JMB.displacement(0.1), j_mv), max_bonds=max_bonds
+            ),
+        ]
+        for build in builds:
+            if ok:
+                assert callable(build())
+            else:
+                with pytest.raises(ValueError, match="does not support"):
+                    build()

@@ -34,7 +34,8 @@ def cuda():
 # (d, cap, model, A, inner): the first three at 8 cells and 3 sub-moves; then
 # a ragged last block (A = 7 is not a multiple of the 4 cells of a block), the
 # CLI path's cap and inner (2D, cap 23, inner 8), a full 32-lane centre cell
-# with 48 sub-moves, and a table with every kind and a kind-0 pair
+# with 48 sub-moves, a table with every kind and a kind-0 pair, and the
+# lj-mixture swap path's cap of 192 centre lanes (more than a warp)
 KERNEL_CASES = [
     (2, 6, "JBB", 8, 3),
     (3, 4, "KobAndersen", 8, 3),
@@ -43,6 +44,7 @@ KERNEL_CASES = [
     (2, 23, "JBB", 36, 8),
     (3, 32, "KobAndersen", 8, 48),
     (3, 6, "mixed", 7, 8),
+    (3, 192, "KobAndersen", 8, 8),
 ]
 
 
@@ -100,13 +102,29 @@ def test_launch_plan_and_refusals(cuda):
     assert cb_cuda.disp_substep.launches == launches
 
 
-def test_hyper_sweep_cuda_matches_cpu(cuda):
-    """The main path on the card against the same path on the CPU (plain
-    version), with injected draws: same counters, positions within 1e-9."""
+POOLS = {
+    "gaussian": (MB.displacement(0.08),),
+    # the kernel's runs split by swap, EnergyBias and smart slots
+    "mixed": (
+        MB.displacement(0.08, 0.6),
+        MB.discrete_swap(0, 1, 0.15),
+        MB.discrete_swap(0, 1, 0.15, policy="energy_bias", theta1=0.5, theta2=-0.3),
+        MB.displacement_smart(0.08, 0.1),
+    ),
+}
+
+
+@pytest.mark.parametrize("pool_name", sorted(POOLS))
+def test_hyper_sweep_cuda_matches_cpu(cuda, pool_name):
+    """The checkerboard path on the card against the same path on the CPU
+    (plain version), with injected draws: same counters and species,
+    positions within 1e-9; the kernel launches once per run of Gaussian
+    slots of each colour."""
     n, d = 300, 2
     pos, sp = lattice(n, d, 1.2, seed=1)
-    pool = (MB.displacement(0.08),)
-    out = {}
+    pool = POOLS[pool_name]
+    swaps = any(m.action == "swap" for m in pool)
+    out, launches = {}, {}
     for dev in (torch.device("cpu"), cuda):
         table = TT.KobAndersen(torch.float64, dev)
         st = initialize_energy(make_system(pos, sp, 1.2, 1.0, device=dev).repeat(2), table)
@@ -121,12 +139,23 @@ def test_hyper_sweep_cuda_matches_cpu(cuda):
             ua=g.uniform(1e-300, 1, (2, R, C, 4, A)),
             dl=g.normal(0, 1, (2, R, C, 4, d, A)),
         )
-        cb = CB.init_cb_state(st, spec, seed=0)
+        if swaps:
+            draws["up2"] = g.uniform(0, 1 - 1e-7, (2, R, C, 4, A))
+        cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
+        before = cb_cuda.disp_substep.launches
         out[dev.type] = hs(cb, MB.init_pool_params(pool, device=dev),
                            **{k: torch.tensor(v, device=dev) for k, v in draws.items()})
+        launches[dev.type] = cb_cuda.disp_substep.launches - before
+        runs = sum(
+            seg[2] for ci in range(C)
+            for seg in CB.schedule_segments(CB._slot_schedule(pool, C, 4)[ci], pool, kernel=True)
+        )
+    assert launches == {"cpu": 0, "cuda": R * runs}
     a, b = out["cpu"], out["cuda"]
     assert torch.equal(a.attempted, b.attempted.cpu())
     assert torch.equal(a.accepted, b.accepted.cpu())
+    assert torch.equal(a.system.species, b.system.species.cpu())
+    assert int(a.accepted.sum()) > 0
     np.testing.assert_allclose(b.system.position.cpu().numpy(), a.system.position.numpy(), atol=1e-9)
     np.testing.assert_allclose(b.system.energy.cpu().numpy(), a.system.energy.numpy(), rtol=1e-9)
     st = b.system

@@ -170,7 +170,6 @@ def test_cli_end_to_end_matches_jax_layout(tmp_path):
     [
         (("parallel_moves = true", "parallel_moves = false"), "item 8"),
         (("rebin_every = 4}", "rebin_every = 4, trim = \"auto\"}"), "item 14"),
-        (('policy = "SimpleGaussian"', 'policy = "SmartGaussian"'), "item 6"),
         (('callbacks = ["energy", "acceptance"]', 'callbacks = ["pressure"]'), "item 12"),
         (('algorithm = "PrintTimeSteps"', 'algorithm = "StoreCheckpoints"'), "item 11"),
         (('algorithm = "PrintTimeSteps"', 'algorithm = "ReplicaExchange"'), "item 9"),
@@ -185,6 +184,22 @@ def test_unported_inputs_raise(tmp_path, edit, item):
     ptoml.write_text(text.replace(*edit))
     with pytest.raises(NotImplementedError, match=item):
         cli.main([str(ptoml), "--device", "cpu"])
+
+
+def test_cli_smart_gaussian_ledger(tmp_path):
+    """A SmartGaussian pool runs through the CLI; its final ledger equals a
+    dense recompute."""
+    _write_config(tmp_path / "config.xyz")
+    text = PARAMS.format(out=tmp_path / "out").replace('policy = "SimpleGaussian"', 'policy = "SmartGaussian"')
+    ptoml = tmp_path / "params.toml"
+    ptoml.write_text(text)
+    sim = cli.run_file(str(ptoml), device="cpu")
+    assert sim.pool[0].policy == "smart"
+    st = sim.mc.system
+    e_dense = total_energy_dense(st.position, st.species, st.box, sim.chains.table)
+    np.testing.assert_allclose(st.energy.numpy(), e_dense.numpy(), rtol=1e-9, atol=1e-9)
+    acc = np.loadtxt(tmp_path / "out" / "moves" / "1" / "acceptance.dat")
+    assert 0.0 < acc[-1, 1] < 1.0
 
 
 def test_cli_missing_file():

@@ -20,6 +20,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "chip_ab.py")
 
 
 def _forbidden(name):

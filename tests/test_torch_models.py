@@ -32,18 +32,28 @@ MIXED_DICT = {
 }
 
 
+KG_DICT = {
+    "1-1": {"name": "GeneralKG", "epsilon": 1.0, "sigma": 1.0, "k": 0.0, "r0": 1.5},
+    "1-2": {"name": "GeneralKG", "epsilon": 1.2, "sigma": 0.95, "k": 30.0, "r0": 1.5,
+            "epsilonbond": 0.8, "sigmabond": 0.9, "rcutbond": 1.1},
+    "2-2": {"name": "GeneralKG", "epsilon": 1.0, "sigma": 1.1, "k": 27.2, "r0": 1.6, "rcut": 1.3},
+}
+
+
 def _tables():
-    """(name, JAX table, port table) for every model the slice covers."""
+    """(name, JAX table, port table) for every model the port covers."""
     return [
         ("BHHP", JT.BHHP(), TT.BHHP(device="cpu")),
         ("KobAndersen", JT.KobAndersen(), TT.KobAndersen(device="cpu")),
         ("JBB", JT.JBB(), TT.JBB(device="cpu")),
         ("soft_dict", JT.model_matrix_from_dict(SOFT_DICT, 2), TT.model_matrix_from_dict(SOFT_DICT, 2, device="cpu")),
         ("mixed_dict", JT.model_matrix_from_dict(MIXED_DICT, 3), TT.model_matrix_from_dict(MIXED_DICT, 3, device="cpu")),
+        ("Trimer", JT.Trimer(), TT.Trimer(device="cpu")),
+        ("kg_dict", JT.model_matrix_from_dict(KG_DICT, 2), TT.model_matrix_from_dict(KG_DICT, 2, device="cpu")),
     ]
 
 
-@pytest.mark.parametrize("case", range(5), ids=[t[0] for t in _tables()])
+@pytest.mark.parametrize("case", range(7), ids=[t[0] for t in _tables()])
 def test_pair_table_fields_equal(case):
     name, jt, tt = _tables()[case]
     for f in dataclasses.fields(TT.PairTable):
@@ -62,19 +72,27 @@ def test_pair_table_fields_equal(case):
     assert TT.interaction_range(tt) == JT.interaction_range(jt)
 
 
+def _assert_tables_equal(jt, tt):
+    for f in dataclasses.fields(TT.PairTable):
+        a = np.asarray(getattr(jt, f.name))
+        b = getattr(tt, f.name).numpy()
+        assert a.dtype.kind == b.dtype.kind, f.name
+        np.testing.assert_array_equal(a, b, err_msg=f.name)
+
+
 def test_resolve_model_registry():
-    assert set(TT.MODEL_REGISTRY) | set(TT.MOLECULAR_MODELS) == set(JT.MODEL_REGISTRY)
+    assert set(TT.MODEL_REGISTRY) == set(JT.MODEL_REGISTRY)
     tt = TT.resolve_model("JBB()", 3, device="cpu")
     np.testing.assert_array_equal(tt.eps4.numpy(), np.asarray(JT.JBB().eps4))
     with pytest.raises(ValueError):
         TT.resolve_model("NoSuchModel", 2, device="cpu")
-    # the molecular models raise until their slice is ported
-    for name in TT.MOLECULAR_MODELS:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TT.resolve_model(name, 3, device="cpu")
+    # the molecular models resolve to the JAX package's tables
+    for name in ("Trimer", "GeneralKG", "Trimer()"):
+        _assert_tables_equal(JT.resolve_model(name, 3), TT.resolve_model(name, 3, device="cpu"))
     kg = {"name": "GeneralKG", "epsilon": 1.0, "sigma": 1.0, "k": 30.0, "r0": 1.5}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        TT.model_matrix_from_dict({"1-1": kg}, 1, device="cpu")
+    _assert_tables_equal(
+        JT.model_matrix_from_dict({"1-1": kg}, 1), TT.model_matrix_from_dict({"1-1": kg}, 1, device="cpu")
+    )
 
 
 def _kind_zero_table(mod, **kw):
@@ -173,3 +191,57 @@ def test_lj_and_inverse_power_match_jax():
 def test_pair_fields_needed_matches_jax():
     for kp in [None, (1,), (2,), (3,), (0, 2), (1, 2, 3), (0, 1, 2, 3)]:
         assert TP.pair_fields_needed(kp) == JP.pair_fields_needed(kp)
+
+
+@pytest.mark.parametrize("table_name", ["kind_zero", "JBB", "BHHP", "mixed_dict", "Trimer"])
+@pytest.mark.parametrize("pruned", [False, True])
+def test_pair_virial_matches_jax(table_name, pruned):
+    """The virial (the force of the smart move) on the r^2 grid of
+    test_pair_potential_matches_jax."""
+    if table_name == "kind_zero":
+        jt, tt = _kind_zero_table(JT), _kind_zero_table(TT, device="cpu")
+    else:
+        _, jt, tt = next(t for t in _tables() if t[0] == table_name)
+    S = tt.n_species
+    kp = TT.kinds_present(tt) if pruned else None
+    r2 = _r2_grid(np.unique(tt.rcut2.numpy()))
+    si, sj = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    si, sj = si.reshape(-1, 1), sj.reshape(-1, 1)
+    wj = np.asarray(JP.pair_virial(jnp.asarray(r2)[None, :], JT.gather_pair(jt, jnp.asarray(si), jnp.asarray(sj)), kp))
+    wt = TP.pair_virial(torch.tensor(r2)[None, :], TT.gather_pair(tt, torch.tensor(si), torch.tensor(sj)), kp).numpy()
+    np.testing.assert_allclose(wt, wj, rtol=1e-13, atol=0.0)
+    assert (wt[:, r2 > tt.rcut2.numpy().max()] == 0.0).all()
+
+
+@pytest.mark.parametrize("table_name", ["Trimer", "kg_dict"])
+def test_bond_potential_matches_jax(table_name):
+    """FENE + LJ bond energy and virial on an r^2 grid that crosses rcutbond^2
+    and r0^2: +inf beyond r0 (FENE), 0 for pairs without a bond."""
+    _, jt, tt = next(t for t in _tables() if t[0] == table_name)
+    S = tt.n_species
+    r2 = np.concatenate([np.linspace(0.5, 1.8, 131) ** 2, np.unique(tt.r02.numpy()), np.unique(tt.rcut2b.numpy())])
+    si, sj = np.meshgrid(np.arange(S), np.arange(S), indexing="ij")
+    si, sj = si.reshape(-1, 1), sj.reshape(-1, 1)
+    pj = JT.gather_pair(jt, jnp.asarray(si), jnp.asarray(sj))
+    pt = TT.gather_pair(tt, torch.tensor(si), torch.tensor(sj))
+    r2j, r2t = jnp.asarray(r2)[None, :], torch.tensor(r2)[None, :]
+    uj = np.asarray(JP.bond_potential(r2j, pj))
+    ut = TP.bond_potential(r2t, pt).numpy()
+    np.testing.assert_allclose(ut, uj, rtol=1e-13, atol=0.0)
+    np.testing.assert_allclose(TP.bond_virial(r2t, pt).numpy(), np.asarray(JP.bond_virial(r2j, pj)), rtol=1e-13, atol=0.0)
+    bonded = tt.has_bond.numpy().reshape(-1) > 0
+    beyond = r2[None, :] > tt.r02.numpy().reshape(-1, 1)
+    assert np.isposinf(ut[bonded[:, None] & beyond]).all()
+    assert (ut[~bonded] == 0.0).all()
+    assert np.isfinite(ut[bonded[:, None] & ~beyond]).all()
+    # the FENE term alone, inside r0
+    r2in = torch.tensor([0.5, 1.0, 2.0])
+    np.testing.assert_allclose(
+        TP.fene(r2in, -15.0, 2.25).numpy(), np.asarray(JP.fene(jnp.asarray(r2in.numpy()), -15.0, 2.25)), rtol=1e-14
+    )
+
+
+def test_interaction_range_includes_bonds():
+    tt = TT.Trimer(device="cpu")
+    assert TT.interaction_range(tt) == pytest.approx(1.575)
+    assert TT.interaction_range(tt) == JT.interaction_range(JT.Trimer()) > tt.max_cutoff
