@@ -26,6 +26,22 @@ other glue and idle:
 - cli_smart: examples/movie/params.toml with SmartGaussian (no kernel);
 - library_molecular: molecule.npz (1000 trimers, N = 3000) cloned to 16
   chains with Displacement + MoleculeFlip (no kernel).
+Then the sequential kernel (no kernel launch), each path with a traced
+16-step sweep for its device launches and stream synchronisations per step:
+- library_sequential: benchmarks/scenarios.py's large-2d-dense (2D JBB,
+  N = 1000, dense ΔE) and larger-ss-3d-cell (3D BHHP, N = 3000, cell list
+  through force_cells), 64 chains, mixed precision, one warm-up and one
+  timed sweep each; then one float64 sweep at N = 64 on the card against
+  the same sweep on the CPU on the same draws;
+- library_sequential_swap: large-2d-dense, 8 chains, one timed sweep of
+  Displacement + DoubleUniform + EnergyBias swaps after a 16-step warm-up;
+- library_sequential_molecular: molecule.npz x 4 chains, one timed sweep of
+  Displacement + MoleculeFlip after a 16-step warm-up;
+- cli_tempering: examples/movie on a 4-rung temperature ladder through the
+  CLI, sequential (ReplicaExchange and AdaptiveSigma every step) and
+  checkerboard (ReplicaExchange every 8 steps, kernel launches counted),
+  then the kernel against its plain version at the tempered run's shapes
+  (4 chains, each with its own temperature's thresholds).
 It then prints the launcher's cells per block and shared memory at each
 kernel path's shapes. Every phase prints one JSON line, and a `wall_seconds`
 line gives each phase's wall time; any failure raises and the exit code is
@@ -572,10 +588,10 @@ def phase_cli(device):
     return sim, launches
 
 
-def phase_cli_kernel_vs_plain(sim):
-    """The kernel against its plain version at the CLI path's shapes: the
-    CLI run's final state, grid, pair table, `inner` and sigma, in its
-    float64."""
+def phase_cli_kernel_vs_plain(sim, path="cli"):
+    """The kernel against its plain version at a CLI path's shapes: the
+    CLI run's final state (each chain's threshold from its own
+    temperature), grid, pair table, `inner` and sigma, in its float64."""
     from particlesmc_tpu_torch.moves import cb_cuda
 
     from particlesmc_tpu_torch.models.tables import kinds_present
@@ -586,7 +602,7 @@ def phase_cli_kernel_vs_plain(sim):
     out = compare(args, kinds_present(sim.chains.table))
     launches = cb_cuda.disp_substep.launches
     cb_cuda.disp_substep.launches = 0  # comparison launches do not count
-    emit({"phase": "kernel_vs_plain", "path": "cli", "shapes": _shapes(args),
+    emit({"phase": "kernel_vs_plain", "path": path, "shapes": _shapes(args),
           "launches": launches, "f64": out})
     return out, _shapes(args)
 
@@ -995,6 +1011,345 @@ def phase_library_molecular(device):
     })
 
 
+# --- the sequential kernel at the reference benchmark matrix's sizes -------
+# (benchmarks/scenarios.py, the reference's benchmark/particles_benchmarks.jl:
+# 64 chains, sigma 0.1, float32 positions with a float64 ledger)
+SEQ_CHAINS, SEQ_SIGMA, SEQ_TRACE_STEPS = 64, 0.1, 16
+SEQ_SCENARIOS = {
+    # name: (N, d, density, temperature, model, species fractions, cell list)
+    "large-2d-dense": (1000, 2, 1.1920748468939728, 0.8, "JBB", (0.46, 0.26, 0.28), False),
+    "larger-ss-3d-cell": (3000, 3, 0.5, 1.0, "BHHP", (0.5, 0.5), True),
+}
+SEQ_SWAP_CHAINS = 8
+SEQ_MOL_CHAINS, SEQ_MOL_SIGMA = 4, 0.06
+
+
+def scenario_config(n, d, density, fractions, seed=42):
+    """benchmarks/scenarios.py's start: a perturbed lattice with the
+    scenario's species fractions, shuffled."""
+    rng = np.random.default_rng(seed)
+    L = (n / density) ** (1 / d)
+    per_dim = int(np.ceil(n ** (1 / d)))
+    a = L / per_dim
+    grid = np.stack(np.meshgrid(*[np.arange(per_dim) * a + a / 2] * d, indexing="ij"), -1).reshape(-1, d)[:n]
+    pos = grid + rng.uniform(-0.05 * a, 0.05 * a, (n, d))
+    counts = [round(n * f) for f in fractions]
+    counts[-1] = n - sum(counts[:-1])
+    species = np.concatenate([np.full(c, s + 1) for s, c in enumerate(counts)])
+    rng.shuffle(species)
+    return pos, species
+
+
+def sequential_sim(device, name, chains, pool, tmp, dtype=torch.float32):
+    """A Simulation on the sequential kernel for one scenario (the engine's
+    dense or force_cells cell-list choice), its chains `chains` copies of
+    the scenario's start."""
+    import warnings
+
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+    from particlesmc_tpu_torch.models import tables as T
+
+    n, d, rho, temp, model, fractions, cells = SEQ_SCENARIOS[name]
+    table = getattr(T, model)(dtype, device)
+    pos, species = scenario_config(n, d, rho, fractions)
+    st = make_system(pos, species, rho, temp, dtype=dtype, device=device)
+    wide = torch.float64 if dtype == torch.float32 else None
+    st = initialize_energy(st, table, energy_dtype=wide).repeat(chains)
+    bundle = Chains(states=st, table=table, list_type="cell" if cells else "dense",
+                    list_parameters={"force_cells": True} if cells else {}, n_chains=chains)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the cell path's warning is the point here
+        sim = Simulation(bundle, [dict(algorithm="Metropolis", pool=pool, seed=42)], 1, path=tmp)
+    assert sim.neighbour_mode == ("cell" if cells else "dense"), sim.neighbour_mode
+    return sim
+
+
+def trace_steps(sim, mc):
+    """Device launches and stream synchronisations per step, from a traced
+    sweep of SEQ_TRACE_STEPS steps (one untraced call first builds its
+    device constants)."""
+    import dataclasses
+
+    from particlesmc_tpu_torch.moves import kernel as K
+
+    sweep = K.build_sweep_fn(dataclasses.replace(sim.config, sweepstep=SEQ_TRACE_STEPS), sim.chains.n_particles)
+    sweep(mc, sim.pool_params)
+    prof = profile_block(lambda: sweep(mc, sim.pool_params))
+    prof["launches_per_step"] = prof["device_launches"] / SEQ_TRACE_STEPS
+    prof["syncs_per_step"] = prof["stream_syncs"] / SEQ_TRACE_STEPS
+    return prof
+
+
+def ledger_gap(mc, table, per_particle=True):
+    """Largest |ledger - dense float64 recompute| over the chains, per
+    particle (or relative)."""
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+
+    st = mc.system
+    e = total_energy_dense(st.position.double(), st.species, st.box.double(), table.astype(torch.float64), st.bonds)
+    gap = (st.energy.double() - e).abs()
+    return float(gap.max()) / st.n_particles if per_particle else float((gap / e.abs()).max())
+
+
+def seq_timed(sim, warmup_steps=None):
+    """Seconds of one sweep, after one warm-up sweep (of `warmup_steps`
+    steps; a whole sweep by default); the state after."""
+    import dataclasses
+
+    from particlesmc_tpu_torch.moves import kernel as K
+
+    n = sim.chains.n_particles
+    sweep = K.build_sweep_fn(sim.config, n)
+    warm = sweep if warmup_steps is None else K.build_sweep_fn(dataclasses.replace(sim.config, sweepstep=warmup_steps), n)
+    mc = warm(sim.mc, sim.pool_params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = sweep(mc, sim.pool_params)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, mc
+
+
+def seq_cpu_vs_card(device):
+    """One float64 sweep at N = 64 (large-2d-dense's state point) on the
+    card and on the CPU, on the same injected draws: same counters, species
+    and positions within 1e-9."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import kernel as K
+
+    n, d, rho, temp, model, fractions, _ = SEQ_SCENARIOS["large-2d-dense"]
+    n, chains = 64, 4
+    pos, species = scenario_config(n, d, rho, fractions)
+    g = np.random.default_rng(3)
+    draws = dict(
+        move=np.zeros((chains, n), np.int64), i=g.integers(0, n, (chains, n)),
+        normal=g.normal(0, 1, (chains, n, d)), u=g.uniform(1e-300, 1, (chains, n)),
+    )
+    pool = (MB.displacement(SEQ_SIGMA),)
+    out = []
+    for dev in (torch.device("cpu"), device):
+        table = getattr(T, model)(torch.float64, dev)
+        st = initialize_energy(make_system(pos, species, rho, temp, device=dev), table).repeat(chains)
+        config = K.KernelConfig(pool=pool, table=table, cell_spec=None)
+        mc = K.init_mc_state(st, config, 0)
+        out.append(K.build_sweep_fn(config, n)(
+            mc, MB.init_pool_params(pool, torch.float64, dev), {k: torch.tensor(v, device=dev) for k, v in draws.items()}
+        ))
+    a, b = out
+    assert torch.equal(a.attempted, b.attempted.cpu()) and torch.equal(a.accepted, b.accepted.cpu()), \
+        "the card's counters differ from the CPU's"
+    assert torch.equal(a.system.species, b.system.species.cpu())
+    err = float((a.system.position - b.system.position.cpu()).abs().max())
+    assert err <= 1e-9, f"the card's positions differ from the CPU's by {err}"
+    assert int(a.accepted.sum()) > 0
+    return {"N": n, "chains": chains, "position_max_abs_err": err, "accepted": int(a.accepted.sum())}
+
+
+def phase_library_sequential(device):
+    """The sequential kernel through the library at two scenarios of the
+    reference benchmark matrix: large-2d-dense (dense ΔE) and
+    larger-ss-3d-cell (cell list through force_cells); then the card against
+    the CPU on the same draws."""
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import kernel as K
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SEQ_SCENARIOS:
+            n = SEQ_SCENARIOS[name][0]
+            sim = sequential_sim(device, name, SEQ_CHAINS, (MB.displacement(SEQ_SIGMA),), tmp)
+            cb_cuda.disp_substep.launches = 0
+            elapsed, mc = seq_timed(sim)
+            assert cb_cuda.disp_substep.launches == 0
+            K.check_state(mc)  # no cell overflow
+            acceptance = move_acceptance(mc)[0]
+            assert 0.0 < acceptance < 1.0, f"{name}: acceptance {acceptance}"
+            gap = ledger_gap(mc, sim.chains.table)
+            assert gap <= 1e-5, f"{name}: ledger differs from the dense recompute by {gap} per particle"
+            spec = sim.config.cell_spec
+            out[name] = {
+                "N": n, "d": SEQ_SCENARIOS[name][1], "model": SEQ_SCENARIOS[name][4], "chains": SEQ_CHAINS,
+                "mode": sim.neighbour_mode, "cells": None if spec is None else list(spec.ncells),
+                "cap": None if spec is None else spec.cap, "precision": "mixed", "sigma": SEQ_SIGMA,
+                "ms_per_sweep": 1e3 * elapsed, "us_per_step": 1e6 * elapsed / n,
+                "us_per_step_per_chain": 1e6 * elapsed / (n * SEQ_CHAINS), "sweeps_per_s": SEQ_CHAINS / elapsed,
+                "acceptance": acceptance, "ledger_gap_per_particle": gap,
+                "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+            }
+    out["cpu_vs_card"] = seq_cpu_vs_card(device)
+    emit({"phase": "library_sequential", **out})
+    return out
+
+
+def phase_library_sequential_swap(device):
+    """large-2d-dense with 8 chains, one sweep of Displacement (0.8) +
+    DiscreteSwap 1<->3 DoubleUniform (0.1) + DiscreteSwap 2<->3 EnergyBias
+    at examples/pgmc-ka2d's learned theta (0.1)."""
+    from particlesmc_tpu_torch.moves import base as MB
+
+    (t1, t2) = KA2D_THETA[(1, 2)]
+    pool = (
+        MB.displacement(SEQ_SIGMA, 0.8),
+        MB.discrete_swap(0, 2, 0.1),
+        MB.discrete_swap(1, 2, 0.1, policy="energy_bias", theta1=t1, theta2=t2),
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        sim = sequential_sim(device, "large-2d-dense", SEQ_SWAP_CHAINS, pool, tmp)
+    counts0 = species_counts(sim.mc.system.species, 3)
+    elapsed, mc = seq_timed(sim, SEQ_TRACE_STEPS)
+    assert torch.equal(species_counts(mc.system.species, 3), counts0), "a swap changed a chain's composition"
+    gap = ledger_gap(mc, sim.chains.table)
+    assert gap <= 1e-5, f"ledger differs from the dense recompute by {gap} per particle"
+    accepted = mc.accepted.sum(dim=0).tolist()
+    assert all(a >= 1 for a in accepted[:2]), f"a move was never accepted: {accepted}"
+    n = sim.chains.n_particles
+    emit({
+        "phase": "library_sequential_swap", "config": "large-2d-dense (2D JBB, rho 1.19207, T 0.8)", "N": n,
+        "chains": SEQ_SWAP_CHAINS, "precision": "mixed", "theta_2_3": [t1, t2],
+        "ms_per_sweep": 1e3 * elapsed, "us_per_step": 1e6 * elapsed / n, "sweeps_per_s": SEQ_SWAP_CHAINS / elapsed,
+        "warmup_steps": SEQ_TRACE_STEPS,
+        "acceptance": move_acceptance(mc), "accepted": accepted, "ledger_gap_per_particle": gap,
+        "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+    })
+
+
+def molecular_sim(device, chains, tmp):
+    """molecule.npz x `chains` on the sequential kernel, float64,
+    Displacement (0.9) + MoleculeFlip (0.1); and the start's energy per
+    particle."""
+    import warnings
+
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import bonds_from_pairs, make_system, mol_table
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+
+    fx = np.load(os.path.join(ROOT, "tests", "fixtures", "molecule.npz"))
+    n = len(fx["species"])
+    table = T.resolve_model(str(fx["model"]), 3, torch.float64, device)
+    st = make_system(
+        fx["position"], fx["species"], float(fx["density"]), float(fx["temperature"]),
+        molecule=fx["molecule"], bonds=bonds_from_pairs(fx["bond_pairs"] - 1, n), box=fx["box"], device=device,
+    )
+    st = initialize_energy(st, table)
+    golden = float(st.energy[0]) / n
+    st = st.repeat(chains)
+    ms, ml = mol_table(st.molecule[0].cpu().numpy())
+    pool = (MB.displacement(SEQ_MOL_SIGMA, 0.9), MB.molecule_flip(0.1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = Simulation(Chains(states=st, table=table, list_type="dense", n_chains=chains,
+                                mol_start=ms, mol_len=ml),
+                         [dict(algorithm="Metropolis", pool=pool, seed=42)], 1, path=tmp)
+    return sim, golden
+
+
+def phase_library_sequential_molecular(device):
+    """molecule.npz x 4 chains through the sequential kernel, float64,
+    Displacement (0.9) + MoleculeFlip (0.1), one sweep."""
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, golden = molecular_sim(device, SEQ_MOL_CHAINS, tmp)
+    assert abs(golden - MOL_GOLDEN) <= 1e-6, f"energy per particle {golden}, golden {MOL_GOLDEN}"
+    table = sim.chains.table
+    st = sim.mc.system
+    n = st.n_particles
+    key0 = torch.sort(st.molecule * 3 + st.species, dim=-1).values  # each molecule's species multiset
+    elapsed, mc = seq_timed(sim, SEQ_TRACE_STEPS)
+    from particlesmc_tpu_torch.moves import kernel as K
+
+    K.check_state(mc)
+    rel = ledger_gap(mc, table, per_particle=False)
+    assert rel <= 1e-9, f"ledger differs from the dense recompute with bonds by {rel} relative"
+    assert torch.equal(torch.sort(mc.system.molecule * 3 + mc.system.species, dim=-1).values, key0), \
+        "a molecule's species multiset changed"
+    acceptance = move_acceptance(mc)
+    assert all(0.0 < a < 1.0 for a in acceptance), acceptance
+    emit({
+        "phase": "library_sequential_molecular", "config": "molecule.npz (1000 trimers, Trimer, T 2.0, rho 1.2)",
+        "N": n, "chains": SEQ_MOL_CHAINS, "precision": "f64", "golden_energy_per_particle": golden,
+        "flip_rounds": mc.flip_rounds, "warmup_steps": SEQ_TRACE_STEPS, "ms_per_sweep": 1e3 * elapsed,
+        "us_per_step": 1e6 * elapsed / n,
+        "sweeps_per_s": SEQ_MOL_CHAINS / elapsed, "acceptance": acceptance, "ledger_max_rel_gap": rel,
+        "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+    })
+
+
+TEMPER_LADDER = [1.0, 1.1, 1.2, 1.3]
+
+
+def phase_cli_tempering(device):
+    """examples/movie through the CLI on a temperature ladder, twice: the
+    sequential kernel (4 steps, ReplicaExchange and AdaptiveSigma every
+    step), then the checkerboard (32 steps, ReplicaExchange every 8), and
+    the kernel against its plain version at the tempered run's shapes.
+    Returns the checkerboard run's kernel launches, that comparison and
+    its shapes."""
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    out = {}
+    for backend, steps, rex_every in (("sequential", 4, 1), ("checkerboard", 32, 8)):
+        extra = (
+            f'\n[[simulation.output]]\nalgorithm = "ReplicaExchange"\n'
+            f"scheduler_params = {{linear_interval = {rex_every}}}\n"
+        )
+        if backend == "sequential":
+            extra += '\n[[simulation.output]]\nalgorithm = "AdaptiveSigma"\nscheduler_params = {linear_interval = 1}\n'
+        with tempfile.TemporaryDirectory() as tmp:
+            params = movie_params(
+                tmp, steps,
+                ("temperature = 1.0", f"temperature = {TEMPER_LADDER}"),
+                ("parallel_moves = true", f"parallel_moves = {str(backend == 'checkerboard').lower()}"),
+                ("linear_interval = 500", f"linear_interval = {rex_every}"),
+                ("linear_interval = 1000", f"linear_interval = {steps}"),
+            )
+            with open(params, "a") as f:
+                f.write(extra)
+            cb_cuda.disp_substep.launches = 0
+            t0 = time.perf_counter()
+            sim = cli.run_file(params)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            launches = cb_cuda.disp_substep.launches
+            rex = np.loadtxt(os.path.join(tmp, "tempering_acceptance.dat"), ndmin=2)
+            sigma = None
+            if backend == "sequential":
+                sigma = np.loadtxt(os.path.join(tmp, "moves", "1", "sigma.dat"), ndmin=2)
+                assert sigma.shape[0] == steps - 1, sigma  # the first event takes the counters
+        st = sim.mc.system
+        assert st.position.device.type == device.type and st.n_chains == len(TEMPER_LADDER)
+        assert rex.shape == (steps // rex_every, 2), rex.shape
+        assert st.temperature.cpu().tolist() == TEMPER_LADDER, "a temperature left its slot"
+        e = total_energy_dense(st.position, st.species, st.box, sim.chains.table)
+        rel = float(((st.energy - e).abs() / e.abs()).max())
+        assert rel <= 1e-9, f"{backend}: a chain's ledger differs from the dense recompute by {rel} relative"
+        if backend == "checkerboard":
+            expected, _ = expected_launches(sim.pool, sim.cb_spec, sim.inner, sim.sweepstep, steps)
+            assert launches == expected > 0, f"{launches} kernel launches, expected {expected}"
+        else:
+            assert launches == 0
+        out[backend] = {
+            "steps": steps, "replica_exchange_every": rex_every, "run_file_seconds": elapsed,
+            "sweep_seconds": sim.sweep_seconds, "sweeps_per_s": steps * st.n_chains / sim.sweep_seconds,
+            "launches": launches, "tempering_acceptance": float(rex[-1, 1]),
+            "rex_accepted": sim._rex.accepted, "rex_attempted": sim._rex.attempted,
+            "acceptance": move_acceptance(sim.mc), "ledger_max_rel_gap": rel,
+            "sigma": None if sigma is None else sigma[:, 1].tolist(),
+        }
+    emit({"phase": "cli_tempering", "params": "examples/movie/params.toml", "N": st.n_particles,
+          "precision": "f64", "ladder": TEMPER_LADDER, **out})
+    return (out["checkerboard"]["launches"],) + phase_cli_kernel_vs_plain(sim, "cli_tempering")
+
+
 def phase_launch_plan(paths):
     """The launcher's cells (warps) per block and dynamic shared memory per
     block at each path's shapes."""
@@ -1045,12 +1400,17 @@ def main() -> int:
     kb, bias_shapes = timed(phase_bias_kernel_vs_plain, *bias_run)
     timed(phase_cli_smart, device)
     timed(phase_library_molecular, device)
+    timed(phase_library_sequential, device)
+    timed(phase_library_sequential_swap, device)
+    timed(phase_library_sequential_molecular, device)
+    temper_launches, kt, temper_shapes = timed(phase_cli_tempering, device)
     phase_launch_plan([
         ("library", torch.float32, lib_shapes),
         ("library", torch.float64, lib_shapes),
         ("cli", torch.float64, cli_shapes),
         ("cli_swap", torch.float32, swap_shapes),
         ("library_energy_bias", torch.float64, bias_shapes),
+        ("cli_tempering", torch.float64, temper_shapes),
     ])
     emit({"phase": "wall_seconds", **wall, "total": sum(wall.values())})
     f32 = kv["f32"]
@@ -1075,6 +1435,7 @@ def main() -> int:
         "cli_f64": {"launches": cli_launches, **{k: kc[k] for k in keep}},
         "cli_swap_f32": {"launches": swap_launches, **{k: ks[k] for k in keep}},
         "library_energy_bias_f64": {"launches": bias_launches, **{k: kb[k] for k in keep}, "sweep": kb["sweep"]},
+        "cli_tempering_f64": {"launches": temper_launches, **{k: kt[k] for k in keep}},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

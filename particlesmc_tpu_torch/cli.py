@@ -3,13 +3,16 @@
 `python -m particlesmc_tpu_torch params.toml [--device cpu]` reads the same
 schema as the reference package:
 
-[system]      config / temperature / density / model (or [model."i-j"]
-              blocks) / list_type / list_parameters
-[simulation]  steps / burn / seed / parallel_moves / output_path / nsim /
-              precision (f64 default, f32, mixed = f32 state + f64 ledger)
+[system]      config / temperature (a scalar, or a ladder) / density / model
+              (or [model."i-j"] blocks) / list_type / list_parameters
+              (cap, force_cells; checkerboard: inner, rebin_every)
+[simulation]  steps / burn / seed / parallel_moves (false: the sequential
+              kernel) / sweepstep / output_path / nsim / precision (f64
+              default, f32, mixed = f32 state + f64 ledger)
 [[simulation.move]]    action / policy / probability / parameters
 [[simulation.output]]  algorithm / scheduler_params {linear_interval,
-                       log_base} / callbacks / dependencies / fmt
+                       log_base} / callbacks / dependencies / fmt;
+                       AdaptiveSigma: move / target / kappa / sigma_max
 
 The run is on the card unless `--device` names another device. Inputs
 outside the ported slice raise NotImplementedError naming the ROADMAP.md
@@ -90,6 +93,13 @@ def _build_outputs(output_cfgs, steps, burn):
             entry["dependencies"] = tuple(out.get("dependencies", ["Metropolis"]))
         elif alg in ("StoreTrajectories", "StoreLastFrames"):
             entry["fmt"] = out.get("fmt", "XYZ")
+        elif alg == "AdaptiveSigma":
+            # schedule it over the burn-in window: it freezes after its last event
+            if "move" in out:
+                entry["move"] = int(out["move"]) - 1  # TOML move ids are 1-based
+            for k in ("target", "kappa", "sigma_max"):
+                if k in out:
+                    entry[k] = float(out[k])
         # Simulation checks the names: NotImplementedError for the reference
         # package's other algorithms, ValueError for unknown ones
         algos.append(entry)

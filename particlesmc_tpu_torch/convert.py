@@ -5,9 +5,10 @@ state. Nothing here imports the JAX package: callers pass plain arrays.
 What carries across: every PairTable field (the pair parameters and the
 FENE/LJ bond parameters), a system's positions, species, box, density,
 temperature and energy ledger and, for a molecular system, its molecule ids
-and padded bond lists, and a checkerboard sampler's arrays (planes,
-including the molecular planes, bins, counters). The random state does not:
-JAX keys have no torch counterpart.
+and padded bond lists, a checkerboard sampler's arrays (planes, including
+the molecular planes, bins, counters) and a sequential sampler's counters
+and cell list. The random state does not: JAX keys have no torch
+counterpart.
 """
 
 from __future__ import annotations
@@ -18,9 +19,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .core.neighbours import CellList
 from .core.state import SystemState
 from .models.tables import INT_FIELDS, PairTable
 from .moves.checkerboard import CBState
+from .moves.kernel import MCState
 from .runtime import resolve_device
 
 
@@ -78,12 +81,7 @@ def cb_state_from_numpy(
     is seeded with `seed` (JAX keys do not carry over)."""
     dev = system.position.device
     dt = system.position.dtype
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-
-    def i64(a):
-        return torch.tensor(np.asarray(a, np.int64), device=dev)
-
+    gen, i64 = _generator(dev, seed), _int64(dev)
     return CBState(
         system=system,
         generator=gen,
@@ -96,3 +94,37 @@ def cb_state_from_numpy(
         overflow=torch.tensor(np.asarray(overflow, bool), device=dev),
         skipped=i64(skipped),
     )
+
+
+def mc_state_from_numpy(
+    system: SystemState, attempted, accepted, cell=None, seed: int = 0, flip_rounds: int = 0,
+) -> MCState:
+    """A sequential sampler's MCState around `system` from batched arrays:
+    attempted/accepted [B, n_moves] and, in cell mode, `cell` = (bucket
+    [B, ncells, cap], count [B, ncells], cell_of [B, N], overflow [B]).
+    The generator is seeded with `seed` (JAX keys do not carry over)."""
+    dev = system.position.device
+    i64 = _int64(dev)
+    clist = None
+    if cell is not None:
+        bucket, count, cell_of, overflow = cell
+        clist = CellList(
+            bucket=i64(bucket), count=i64(count), cell_of=i64(cell_of),
+            overflow=torch.tensor(np.asarray(overflow, bool), device=dev),
+        )
+    return MCState(
+        system=system, generator=_generator(dev, seed), cell=clist,
+        attempted=i64(attempted), accepted=i64(accepted),
+        flip_failed=torch.zeros(system.n_chains, dtype=torch.bool, device=dev),
+        flip_rounds=int(flip_rounds),
+    )
+
+
+def _generator(device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    return gen
+
+
+def _int64(device):
+    return lambda a: torch.tensor(np.asarray(a, np.int64), device=device)

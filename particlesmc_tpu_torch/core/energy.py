@@ -3,13 +3,23 @@
 `total_energy_dense` is the O(N^2) oracle the incremental ledger is checked
 against, and the start energy of every chain. On molecular systems each
 particle's sum excludes its bonded partners from the non-bonded pairs and
-adds the bond terms over its bond list."""
+adds the bond terms over its bond list.
+
+The sequential kernel's per-particle energies take rows: particle ids
+k [B, R], each row with its own `Override`, a virtual single-move edit
+(particle i at pos_i with species sp_i, particle j with species sp_j)
+applied during the evaluation in place of the reference's
+mutate-then-recompute. `particle_energy` sums over candidate ids
+[B, R, M] (-1 padded, a cell list's), `particle_energy_nogather` over all N
+particles (the dense ΔE)."""
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
-from ..models.potentials import PAIR_FIELDS, bond_potential, pair_potential
+from ..models.potentials import bond_potential, pair_fields_needed, pair_potential
 from ..models.tables import BOND_FIELDS, PairTable, gather_pair
 from .geometry import dist2
 
@@ -17,13 +27,144 @@ from .geometry import dist2
 _PAIR_BUDGET = 1 << 23
 
 
-def per_particle_energies(position, species, box, table: PairTable, bonds=None, chunk: int = 256):
+class Override(NamedTuple):
+    """Virtual single-move edit per row: i [B, R] takes position pos_i
+    [B, R, d] and species sp_i, j [B, R] takes species sp_j (j == i for a
+    displacement). i = j = -1 is no edit (candidate padding is -1 too, but
+    padded lanes are masked before the edit can matter)."""
+
+    i: torch.Tensor
+    j: torch.Tensor
+    pos_i: torch.Tensor
+    sp_i: torch.Tensor
+    sp_j: torch.Tensor
+
+
+def no_override(k, position) -> Override:
+    """The empty edit for rows shaped like k [B, R]."""
+    i = torch.full_like(k, -1)
+    z = torch.zeros_like(k)
+    return Override(i, i, position.new_zeros(k.shape + position.shape[-1:]), z, z)
+
+
+def take(x, idx):
+    """x[b, idx[b, ...]] for x [B, N, *t] and ids idx [B, *s] ->
+    [B, *s, *t]; a negative id reads row 0 (its lane is masked by the
+    caller)."""
+    B = x.shape[0]
+    flat = torch.clamp_min(idx.reshape(B, -1), 0)
+    t = x.shape[2:]
+    if t:
+        flat = flat.reshape((B, -1) + (1,) * len(t)).expand((B, flat.shape[1]) + t)
+    return torch.gather(x, 1, flat).reshape(idx.shape + t)
+
+
+def _effective(idx, position, species, ov: Override):
+    """Positions and species of particles idx [B, R, ...] with each row's
+    edit applied."""
+    x = take(position, idx)
+    s = take(species, idx)
+    extra = (1,) * (idx.dim() - ov.i.dim())
+    oi, oj = ov.i.reshape(ov.i.shape + extra), ov.j.reshape(ov.j.shape + extra)
+    hit_i = idx == oi
+    x = torch.where(hit_i[..., None], ov.pos_i.reshape(ov.i.shape + extra + ov.pos_i.shape[-1:]), x)
+    s = torch.where(hit_i, ov.sp_i.reshape(oi.shape), s)
+    s = torch.where(idx == oj, ov.sp_j.reshape(oj.shape), s)
+    return x, s
+
+
+def _bonded_sum(k, xk, sk, position, species, box, table, bonds, ov):
+    """Σ over k's bond list of the bond potential [B, R], with the edit."""
+    bonds_k = take(bonds, k)  # [B, R, maxb]
+    bvalid = bonds_k >= 0
+    xb, sb = _effective(torch.where(bvalid, bonds_k, 0), position, species, ov)
+    r2b = dist2(xb, xk[..., None, :], box[:, None, None, :])
+    ub = bond_potential(r2b, gather_pair(table, sk[..., None], sb, BOND_FIELDS))
+    return torch.sum(torch.where(bvalid, ub, 0.0), dim=-1)
+
+
+def particle_energy(
+    k, cands, position, species, box, table: PairTable, bonds=None,
+    ov: Optional[Override] = None, kinds=None,
+):
+    """Energy [B, R] of particles k [B, R] against candidate ids cands
+    [B, R, M] (-1 padded): the non-bonded pair sum over candidates other
+    than k and its bonded partners, plus the bond terms over k's bond list.
+    Inf propagates (an overlap, an overstretched FENE bond) so that the
+    Metropolis step rejects. `kinds` (tables.kinds_present) prunes the
+    potential forms."""
+    if ov is None:
+        ov = no_override(k, position)
+    xk, sk = _effective(k, position, species, ov)
+    xc, sc = _effective(cands, position, species, ov)
+    valid = (cands >= 0) & (cands != k[..., None])
+    if bonds is not None:
+        bonds_k = take(bonds, k)
+        valid = valid & ~torch.any(cands[..., None] == bonds_k[..., None, :], dim=-1)
+    r2 = dist2(xc, xk[..., None, :], box[:, None, None, :])
+    u = pair_potential(r2, gather_pair(table, sk[..., None], sc, pair_fields_needed(kinds)), kinds)
+    e = torch.sum(torch.where(valid, u, 0.0), dim=-1)
+    if bonds is not None:
+        e = e + _bonded_sum(k, xk, sk, position, species, box, table, bonds, ov)
+    return e
+
+
+def particle_energy_nogather(
+    k, position, species, box, table: PairTable, bonds=None,
+    ov: Optional[Override] = None, kinds=None,
+):
+    """Energy [B, R] of particles k [B, R] against all N particles, each row
+    with its own edit applied to the whole configuration: the same sums as
+    particle_energy(k, arange(N), ...)."""
+    B, n, d = position.shape
+    iota = torch.arange(n, device=position.device)
+    if ov is None:
+        ov = no_override(k, position)
+    hit_i = iota == ov.i[..., None]  # [B, R, N]
+    pos_eff = torch.where(hit_i[..., None], ov.pos_i[:, :, None, :], position[:, None])
+    sp_eff = torch.where(
+        hit_i, ov.sp_i[..., None], torch.where(iota == ov.j[..., None], ov.sp_j[..., None], species[:, None])
+    )
+    R = k.shape[1]
+    xk = torch.gather(pos_eff, 2, k[:, :, None, None].expand(B, R, 1, d))[:, :, 0]
+    sk = torch.gather(sp_eff, 2, k[:, :, None])[:, :, 0]
+    valid = iota != k[..., None]
+    if bonds is not None:
+        bonds_k = take(bonds, k)
+        valid = valid & ~torch.any(iota[:, None] == bonds_k[..., None, :], dim=-1)
+    r2 = dist2(pos_eff, xk[:, :, None, :], box[:, None, None, :])
+    u = pair_potential(r2, gather_pair(table, sk[..., None], sp_eff, pair_fields_needed(kinds)), kinds)
+    e = torch.sum(torch.where(valid, u, 0.0), dim=-1)
+    if bonds is not None:
+        e = e + _bonded_sum(k, xk, sk, position, species, box, table, bonds, ov)
+    return e
+
+
+def particle_energy_dense(k, position, species, box, table: PairTable, bonds=None, ov=None, kinds=None):
+    """O(N) particle energies over all candidates: the dense oracle."""
+    B, n = species.shape
+    cands = torch.arange(n, device=position.device).expand(k.shape + (n,))
+    return particle_energy(k, cands, position, species, box, table, bonds, ov, kinds)
+
+
+def per_particle_energies(
+    position, species, box, table: PairTable, bonds=None, chunk: int = 256, cand_fn=None,
+    kinds=None,
+):
     """Every particle's energy against all others: position [B, N, d],
     species [B, N], box [B, d], bonds [B, N, maxb] or None -> [B, N].
-    Chunked over particles to bound the [B, rows, N] pair buffers."""
+    With `cand_fn(k [B, R]) -> cands [B, R, M]` each particle sums over its
+    candidates (particle_energy) instead of all N. Chunked over particles to
+    bound the pair buffers; `kinds` prunes the potential forms."""
     B, n, _ = position.shape
     rows = max(1, min(chunk, n, _PAIR_BUDGET // max(1, B * n)))
     iota = torch.arange(n, device=position.device)
+    if cand_fn is not None:
+        per = []
+        for k0 in range(0, n, rows):
+            k = iota[k0:k0 + rows].expand(B, -1)
+            per.append(particle_energy(k, cand_fn(k), position, species, box, table, bonds, kinds=kinds))
+        return torch.cat(per, dim=1)
     pos_all = position[:, None, :, :]
     box_b = box[:, None, None, :]
     per = []
@@ -32,8 +173,8 @@ def per_particle_energies(position, species, box, table: PairTable, bonds=None, 
         xk = position[:, k0:k1, None, :]
         r2 = dist2(pos_all, xk, box_b)  # [B, rows, N]
         sk = species[:, k0:k1, None]
-        p = gather_pair(table, sk, species[:, None, :], PAIR_FIELDS)
-        u = pair_potential(r2, p)
+        p = gather_pair(table, sk, species[:, None, :], pair_fields_needed(kinds))
+        u = pair_potential(r2, p, kinds)
         valid = iota[None, None, :] != iota[k0:k1, None][None]
         if bonds is not None:
             bk = bonds[:, k0:k1]  # [B, rows, maxb]

@@ -1,11 +1,18 @@
-"""The Simulation engine (counterpart of particlesmc_tpu/engine/simulation.py,
-its `parallel_moves` branch).
+"""The Simulation engine (counterpart of particlesmc_tpu/engine/simulation.py).
 
 `Simulation(chains, algorithm_list, steps; path, verbose)` + `run()`. One
-step is one sweep of `sweepstep` attempted moves. All chains advance
-together on one device through the checkerboard hyper-sweep, dispatched in
-blocks of `rebin_every` sweeps (one rebin each) between scheduled output
-events.
+step is one sweep of `sweepstep` attempted moves per chain. All chains
+advance together on one device, through one of two backends:
+
+- `parallel_moves = true`: the checkerboard hyper-sweep, dispatched in
+  blocks of `rebin_every` sweeps (one rebin each);
+- otherwise the sequential kernel (moves/kernel.py), one move per chain and
+  step, with the dense ΔE, or with a cell list when `list_type` is a cell or
+  Verlet list and N > DENSE_DELTA_MAX or `list_parameters.force_cells` is
+  set. Per-chain boxes run on the dense path only.
+
+The sweeps between two scheduled events are issued without a host
+synchronisation; each event waits for the device once.
 
 Outputs and their directory layout:
 - StoreCallbacks    -> <path>/chains/<k>/<name>.dat        rows "step value"
@@ -13,21 +20,26 @@ Outputs and their directory layout:
 - StoreTrajectories -> <path>/chains/<k>/trajectory.<ext>  appended frames
 - StoreLastFrames   -> <path>/chains/<k>/lastframe.<ext>   restart file
 - PrintTimeSteps    -> progress and throughput to stdout
+- ReplicaExchange   -> <path>/tempering_acceptance.dat     rows "step rate"
+- AdaptiveSigma     -> <path>/moves/<id>/sigma.dat         rows "step sigma rate"
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import neighbours as NB
 from ..io import formats
 from ..io.loader import Chains
 from ..moves import checkerboard as CBK
+from ..moves import kernel as K
 from ..models.tables import interaction_range
 from ..moves.base import Move, init_pool_params
 from ..runtime import unported
@@ -37,13 +49,11 @@ FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
 
 OUTPUTS = (
     "StoreCallbacks", "StoreAcceptance", "StoreTrajectories", "StoreLastFrames",
-    "PrintTimeSteps",
+    "PrintTimeSteps", "ReplicaExchange", "AdaptiveSigma",
 )
 # outputs of the reference package that later slices port, with their
 # ROADMAP.md queue-1 item
 UNPORTED_OUTPUTS = {
-    "ReplicaExchange": 9,
-    "AdaptiveSigma": 9,
     "PolicyGradientEstimator": 10,
     "PolicyGradientUpdate": 10,
     "StoreParameters": 10,
@@ -102,7 +112,7 @@ def _check_outputs(outputs):
 
 
 class Simulation:
-    """Engine state: batched chains, the hyper-sweep, scheduled outputs."""
+    """Engine state: batched chains, the sweep backend, scheduled outputs."""
 
     def __init__(
         self,
@@ -127,13 +137,55 @@ class Simulation:
         self.pool: Tuple[Move, ...] = tuple(m.extra["pool"])
         self.seed = int(m.extra.get("seed", 0))
         self.sweepstep = int(m.extra.get("sweepstep", chains.n_particles))
-        if not m.extra.get("parallel_moves", False):
-            raise unported("the sequential kernel (parallel_moves = false)", 8)
+        self.parallel_moves = bool(m.extra.get("parallel_moves", False))
         if int(m.extra.get("spatial_devices", 0)) > 1:
             raise unported("spatial_devices (one system over several devices)", 13)
         self.outputs = [a for a in algos if a.name != "Metropolis"]
         _check_outputs(self.outputs)
 
+        st = chains.states
+        if chains.list_type == "verlet":
+            warnings.warn(
+                "VerletList maps to the bucketed cell implementation (there is "
+                "no skin variant); candidates and rebuilds follow the cell "
+                "path — set list_type 'CellList' to silence this.",
+                stacklevel=2,
+            )
+        if self.parallel_moves:
+            self._init_checkerboard()
+        else:
+            self._init_sequential()
+        self.pool_params = init_pool_params(self.pool, st.position.dtype, st.position.device)
+        if self.parallel_moves:
+            self._block(self.rebin_every)  # refuses a pool the checkerboard cannot run
+
+        self._sigma_tuner = None
+        tuner = [a for a in self.outputs if a.name == "AdaptiveSigma"]
+        if tuner:
+            from .adaptive import AdaptiveSigma
+
+            t0 = tuner[0]
+            if t0.scheduler is None:
+                raise ValueError("AdaptiveSigma needs a scheduler")
+            self._sigma_tuner = AdaptiveSigma(
+                self, move=t0.extra.get("move"), target=float(t0.extra.get("target", 0.22)),
+                kappa=float(t0.extra.get("kappa", 1.0)), sigma_max=t0.extra.get("sigma_max"),
+            )
+            self._sigma_tuner_sched = set(int(t) for t in t0.scheduler)
+        self._rex = None
+        rex = [a for a in self.outputs if a.name == "ReplicaExchange"]
+        if rex:
+            from .tempering import ReplicaExchange
+
+            if rex[0].scheduler is None:
+                raise ValueError("ReplicaExchange needs a scheduler")
+            self._rex = ReplicaExchange(self, seed=self.seed)
+            self._rex_sched = set(int(t) for t in rex[0].scheduler)
+        self._event_times = self._collect_event_times()
+
+    def _init_checkerboard(self):
+        """The checkerboard backend: one static grid for all chains."""
+        chains = self.chains
         st = chains.states
         n = chains.n_particles
         params = chains.list_parameters
@@ -156,16 +208,53 @@ class Simulation:
         if cb_spec is None:
             raise ValueError(
                 "box too small for a checkerboard grid (need >= 4 cells per "
-                "dimension at the interaction cutoff)"
+                "dimension at the interaction cutoff); unset parallel_moves "
+                "to use the sequential kernel"
             )
         self.cb_spec = cb_spec
         self.mc = CBK.init_cb_state(st, cb_spec, self.seed, len(self.pool))
-        self.pool_params = init_pool_params(self.pool, st.position.dtype, st.position.device)
         self.rebin_every = max(1, int(params.get("rebin_every", 8)))
         self.inner = int(params.get("inner", 8))
         self._blocks: Dict[int, Callable] = {}
-        self._block(self.rebin_every)  # refuses a pool the checkerboard cannot run
-        self._event_times = self._collect_event_times()
+
+    def _init_sequential(self):
+        """The sequential kernel, dense or with a cell list."""
+        chains = self.chains
+        st = chains.states
+        n = chains.n_particles
+        params = chains.list_parameters
+        self.cb_spec = None
+        cell_spec = None
+        if chains.list_type in ("cell", "verlet") and (
+            n > K.DENSE_DELTA_MAX or bool(params.get("force_cells", False))
+        ):
+            if not torch.equal(st.box, st.box[:1].expand_as(st.box)):
+                raise ValueError(
+                    "cell-list mode requires all chains to share one box (the "
+                    "grid is static); use list_type 'dense' for per-chain boxes"
+                )
+            cell_spec = NB.make_spec(
+                st.box[0].double().cpu().numpy(), chains.table.max_cutoff, n, params.get("cap")
+            )
+            if cell_spec is None and self.verbose:
+                print("cell grid too small; falling back to dense candidates")
+        if cell_spec is not None:
+            warnings.warn(
+                f"the sequential kernel at N={n} runs the cell-list ΔE: one "
+                "move per chain and step, each step a few dozen small device "
+                "launches, so a sweep is N dependent steps. Set parallel_moves "
+                "= true (the checkerboard backend) unless this pool or "
+                "geometry needs the sequential kernel.",
+                stacklevel=3,
+            )
+        self.config = K.KernelConfig(
+            pool=self.pool, table=chains.table, cell_spec=cell_spec,
+            mol_start=None if chains.mol_start is None else tuple(int(x) for x in chains.mol_start),
+            mol_len=None if chains.mol_len is None else tuple(int(x) for x in chains.mol_len),
+            sweepstep=self.sweepstep,
+        )
+        self.mc = K.init_mc_state(st, self.config, self.seed)
+        self._run_sweeps = K.build_run_fn(self.config, n)
 
     # ------------------------------------------------------------------
     def _block(self, sweeps: int) -> Callable:
@@ -187,11 +276,15 @@ class Simulation:
 
     def _run_chunk(self, n_sweeps: int):
         t0 = time.perf_counter()
-        nb, rem = divmod(n_sweeps, self.rebin_every)
-        for _ in range(nb):
-            self.mc = self._block(self.rebin_every)(self.mc, self.pool_params)
-        if rem:
-            self.mc = self._block(rem)(self.mc, self.pool_params)
+        if self.parallel_moves:
+            nb, rem = divmod(n_sweeps, self.rebin_every)
+            for _ in range(nb):
+                self.mc = self._block(self.rebin_every)(self.mc, self.pool_params)
+            if rem:
+                self.mc = self._block(rem)(self.mc, self.pool_params)
+        else:
+            # no compile per chunk length here, so one call covers the gap
+            self.mc = self._run_sweeps(self.mc, self.pool_params, n_sweeps)
         self._sync()  # every output event reads the chains anyway
         self.sweep_seconds += time.perf_counter() - t0
 
@@ -222,6 +315,11 @@ class Simulation:
             elif a.name == "StoreAcceptance":
                 for m in range(len(self.pool)):
                     open(self._move_file(m, "acceptance.dat"), "w").close()
+            elif a.name == "ReplicaExchange":
+                open(os.path.join(self.path, "tempering_acceptance.dat"), "w").close()
+            elif a.name == "AdaptiveSigma":
+                for m in self._sigma_tuner.moves:
+                    open(self._move_file(m, "sigma.dat"), "w").close()
 
     def _chain_file(self, k: int, name: str) -> str:
         return os.path.join(self.path, "chains", str(k + 1), name)
@@ -304,13 +402,23 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def check_health(self):
-        """A bucket overflow skips its block (identity, unbiased) and is
-        counted; raise only if every block was skipped."""
-        if bool(torch.any(self.mc.skipped > 0)) and int(self.mc.attempted.sum()) == 0:
+        """Raise on a sticky device-side error. Sequential: a cell-list
+        bucket overflow or a MoleculeFlip without a valid pair.
+        Checkerboard: a bucket overflow skips its block (identity, unbiased)
+        and is counted; raise only if every block was skipped."""
+        if not self.parallel_moves:
+            K.check_state(self.mc)
+        elif bool(torch.any(self.mc.skipped > 0)) and int(self.mc.attempted.sum()) == 0:
             raise RuntimeError(
                 "checkerboard: every rebin block overflowed and was skipped "
                 "— increase list_parameters.cap"
             )
+
+    @property
+    def neighbour_mode(self) -> str:
+        if self.parallel_moves:
+            return "checkerboard"
+        return "cell" if self.config.cell_spec is not None else "dense"
 
     def write_summary(self):
         """Human-readable summary in <path>/simulation.log."""
@@ -321,7 +429,7 @@ class Simulation:
             f"\tCell: {st.box[0].double().cpu().numpy().tolist()}",
             f"\tDensity: {float(st.density[0])}",
             f"\tTemperature: {st.temperature.double().cpu().numpy().tolist()}",
-            "\tNeighbour mode: checkerboard",
+            f"\tNeighbour mode: {self.neighbour_mode}",
             f"\tChains: {self.chains.n_chains}",
             f"\tSteps: {self.steps} (sweepstep {self.sweepstep})",
             f"\tMoves: {[m.action for m in self.pool]}",
@@ -345,6 +453,12 @@ class Simulation:
                 continue
             self._run_chunk(int(nxt - t))
             t = int(nxt)
+            if self._sigma_tuner is not None and t in self._sigma_tuner_sched:
+                self._sigma_tuner.step(t)
+            if self._rex is not None and t in self._rex_sched:
+                self._rex.step()
+                with open(os.path.join(self.path, "tempering_acceptance.dat"), "a") as f:
+                    f.write(f"{t} {self._rex.rate:.12g}\n")
             self._fire_outputs(t)
         self.check_health()
         return self

@@ -45,8 +45,9 @@ class Chains:
         return self.states.dim
 
 
-# Reference list names -> neighbour modes. The checkerboard backend bins
-# particles itself, so on this slice the mode is recorded but not used.
+# Reference list names -> neighbour modes. The sequential kernel takes its
+# cell list from a cell or Verlet mode (engine/simulation.py); the
+# checkerboard backend bins particles itself.
 LIST_REGISTRY = {
     "EmptyList": "dense",
     "CellList": "cell",

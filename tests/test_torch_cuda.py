@@ -1,6 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
-the CUDA kernel against its plain version, and the main path on the card
-against the same path on the CPU. Run on a machine with the card:
+the CUDA kernel against its plain version, the main path on the card
+against the same path on the CPU, and the sequential kernel and a
+replica-exchange pass on the card against the CPU. Run on a machine with
+the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
@@ -12,14 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from particlesmc_tpu_torch.core.state import make_system
+from particlesmc_tpu_torch.core import neighbours as NB
+from particlesmc_tpu_torch.core.state import make_system, mol_table
 from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
+from particlesmc_tpu_torch.engine.tempering import replica_exchange
 from particlesmc_tpu_torch.models import tables as TT
 from particlesmc_tpu_torch.moves import base as MB
 from particlesmc_tpu_torch.moves import cb_cuda
 from particlesmc_tpu_torch.moves import checkerboard as CB
+from particlesmc_tpu_torch.moves import kernel as K
 
-from .test_torch_inputs import lattice, make_inputs, mixed_table
+from .test_torch_inputs import lattice, make_inputs, mixed_table, trimer_melt
 
 pytestmark = pytest.mark.cuda
 
@@ -161,3 +166,106 @@ def test_hyper_sweep_cuda_matches_cpu(cuda, pool_name):
     st = b.system
     e = total_energy_dense(st.position, st.species, st.box, TT.KobAndersen(torch.float64, cuda))
     np.testing.assert_allclose(st.energy.cpu().numpy(), e.cpu().numpy(), rtol=1e-9, atol=1e-7)
+
+
+# (system, pool) of the sequential cases: KA 3D N = 216 at rho 0.5 (a 3^3
+# grid with the cell list), and a trimer melt with MoleculeFlip
+SEQ_CASES = ("dense", "cells", "flip")
+
+
+def _sequential(case, dev):
+    """The case's state on `dev` (3 chains), its kernel config and pool."""
+    if case == "flip":
+        pos, sp, mol, bonds = trimer_melt(27, 0.4, seed=2)
+        table = TT.Trimer(torch.float64, dev)
+        st = make_system(pos, sp, 0.4, 2.0, molecule=mol, bonds=bonds, device=dev)
+        ms, ml = mol_table(mol - 1)
+        pool = (MB.displacement(0.05, 0.6), MB.molecule_flip(0.4))
+        config = K.KernelConfig(pool=pool, table=table, cell_spec=None, mol_start=tuple(ms), mol_len=tuple(ml))
+    else:
+        pos, sp = lattice(216, 3, 0.5, seed=4)
+        table = TT.KobAndersen(torch.float64, dev)
+        st = make_system(pos, sp, 0.5, 2.0, device=dev)
+        pool = (MB.displacement(0.1, 0.5), MB.discrete_swap(0, 1, 0.3),
+                MB.discrete_swap(0, 1, 0.2, policy="energy_bias", theta1=0.5, theta2=-0.3))
+        spec = NB.make_spec(st.box[0].cpu().numpy(), table.max_cutoff, 216) if case == "cells" else None
+        config = K.KernelConfig(pool=pool, table=table, cell_spec=spec)
+    st = initialize_energy(st, table).repeat(3)
+    return st, config, pool
+
+
+def _seq_draws(case, n, steps, rounds):
+    """Draws from a numpy seed; the swaps' ranks stay within the smallest
+    population of the KA lattice (species 2, 20% of 216)."""
+    g = np.random.default_rng(7)
+    n_moves = 2 if case == "flip" else 3
+    draws = dict(
+        move=g.integers(0, n_moves, (3, steps)), i=g.integers(0, n, (3, steps)),
+        normal=g.normal(0, 1, (3, steps, 3)), u=g.uniform(1e-300, 1, (3, steps)),
+    )
+    if case == "flip":
+        m = g.integers(0, n // 3, (3, steps, rounds))
+        draws["flip"] = np.stack([m, g.integers(0, 3, m.shape), g.integers(0, 2, m.shape)], -1)
+    else:
+        draws["r1"], draws["r2"] = g.integers(0, 30, (3, steps)), g.integers(0, 30, (3, steps))
+        draws["gumbel"] = -np.log(-np.log(g.uniform(1e-300, 1, (3, steps, 2, n))))
+    return draws
+
+
+@pytest.mark.parametrize("case", SEQ_CASES)
+def test_sequential_sweep_cuda_matches_cpu(cuda, case):
+    """One sequential sweep on the card against the CPU on the same injected
+    draws (dense, cell list, molecular flip): same counters and species,
+    positions within 1e-9, energy within rtol 1e-9, equal cell lists; then a
+    sweep on the state's own generator issues no host synchronisation."""
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        st, config, pool = _sequential(case, dev)
+        mc = K.init_mc_state(st, config, 0)
+        n = st.n_particles
+        draws = _seq_draws(case, n, n, mc.flip_rounds)
+        sweep = K.build_sweep_fn(config, n)
+        params = MB.init_pool_params(pool, torch.float64, dev)
+        out[dev.type] = sweep(mc, params, {k: torch.tensor(v, device=dev) for k, v in draws.items()})
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(a.attempted, b.attempted.cpu()) and torch.equal(a.accepted, b.accepted.cpu())
+    assert torch.equal(a.system.species, b.system.species.cpu())
+    assert int(a.accepted.sum()) > 0
+    np.testing.assert_allclose(b.system.position.cpu().numpy(), a.system.position.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(b.system.energy.cpu().numpy(), a.system.energy.numpy(), rtol=1e-9)
+    if case == "cells":
+        for f in ("bucket", "count", "cell_of", "overflow"):
+            assert torch.equal(getattr(a.cell, f), getattr(b.cell, f).cpu()), f
+    K.check_state(b)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = sweep(b, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    K.check_state(b)
+    s = b.system
+    e = total_energy_dense(s.position, s.species, s.box, config.table, s.bonds)
+    np.testing.assert_allclose(s.energy.cpu().numpy(), e.cpu().numpy(), rtol=1e-9)
+
+
+def test_replica_exchange_cuda_matches_cpu(cuda):
+    """A replica-exchange pass on a card state (with its cell list) against
+    the same pass on the CPU, on the same uniforms; then a pass from the
+    generator on the card."""
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        st, config, _ = _sequential("cells", dev)
+        st = st.replace(temperature=torch.tensor([0.8, 1.0, 1.3], dtype=torch.float64, device=dev),
+                                  energy=st.energy + torch.tensor([5.0, -5.0, 0.0], dtype=torch.float64, device=dev))
+        mc = K.init_mc_state(st, config, 0)
+        out.append(replica_exchange(mc, 0, u=torch.full((3,), 0.5, dtype=torch.float64, device=dev)))
+    (a, att_a, acc_a), (b, att_b, acc_b) = out
+    assert acc_a.tolist() == acc_b.cpu().tolist() == [True, False, False]
+    assert torch.equal(a.system.position, b.system.position.cpu())
+    assert torch.equal(a.cell.bucket, b.cell.bucket.cpu())
+    assert b.system.temperature.cpu().tolist() == [0.8, 1.0, 1.3]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    c, att, _ = replica_exchange(b, 1, generator=g)
+    assert c.system.position.is_cuda and att.cpu().tolist() == [False, True, False]

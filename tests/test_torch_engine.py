@@ -9,13 +9,17 @@ import torch
 
 from particlesmc_tpu.cli import main as j_main
 from particlesmc_tpu.engine.schedule import build_schedule as j_build_schedule
+from particlesmc_tpu.engine.simulation import Simulation as JSimulation
 from particlesmc_tpu.io import formats as JF
 from particlesmc_tpu.io import loader as JL
+from particlesmc_tpu.moves import base as JMB
 from particlesmc_tpu_torch import cli
 from particlesmc_tpu_torch.core.energy import total_energy_dense
 from particlesmc_tpu_torch.engine.schedule import build_schedule
+from particlesmc_tpu_torch.engine.simulation import Simulation
 from particlesmc_tpu_torch.io import formats as TF
 from particlesmc_tpu_torch.io import loader as TL
+from particlesmc_tpu_torch.moves import base as TMB
 
 from .helpers import FIXTURES, load_fixture
 
@@ -168,11 +172,11 @@ def test_cli_end_to_end_matches_jax_layout(tmp_path):
 @pytest.mark.parametrize(
     "edit,item",
     [
-        (("parallel_moves = true", "parallel_moves = false"), "item 8"),
+        (('algorithm = "PrintTimeSteps"', 'algorithm = "StoreParameters"'), "item 10"),
         (("rebin_every = 4}", "rebin_every = 4, trim = \"auto\"}"), "item 14"),
         (('callbacks = ["energy", "acceptance"]', 'callbacks = ["pressure"]'), "item 12"),
         (('algorithm = "PrintTimeSteps"', 'algorithm = "StoreCheckpoints"'), "item 11"),
-        (('algorithm = "PrintTimeSteps"', 'algorithm = "ReplicaExchange"'), "item 9"),
+        (('callbacks = ["energy", "acceptance"]', 'callbacks = ["chain_correlation"]'), "item 12"),
         (("seed = 10", "seed = 10\nspatial_devices = 2"), "item 13"),
     ],
 )
@@ -200,6 +204,118 @@ def test_cli_smart_gaussian_ledger(tmp_path):
     np.testing.assert_allclose(st.energy.numpy(), e_dense.numpy(), rtol=1e-9, atol=1e-9)
     acc = np.loadtxt(tmp_path / "out" / "moves" / "1" / "acceptance.dat")
     assert 0.0 < acc[-1, 1] < 1.0
+
+
+def test_simulation_outputs_sequential(tmp_path):
+    """tests/test_simulation.py::test_simulation_outputs on the port's
+    sequential kernel: the same output files as the JAX package, rows at
+    the scheduled steps, diverging chains, and the ledger equal to a dense
+    recompute and to the last energy row."""
+    cfg = tmp_path / "config.xyz"
+    _write_config(cfg, n=48, density=0.5)
+    args = {"temperature": 1.5, "model": "JBB", "list_type": "EmptyList", "nsim": 2}
+    steps = 20
+    sched = build_schedule(steps, 0, [0, 1, 2, 4, 8])
+
+    def algorithms(mb):
+        return [
+            dict(algorithm="Metropolis", pool=(mb.displacement(0.1, 0.6), mb.discrete_swap(0, 1, 0.4)), seed=7),
+            dict(algorithm="StoreCallbacks", callbacks=("energy",), scheduler=sched),
+            dict(algorithm="StoreAcceptance", dependencies=("Metropolis",), scheduler=sched),
+            dict(algorithm="StoreTrajectories", scheduler=sched, fmt="EXYZ"),
+            dict(algorithm="StoreLastFrames", scheduler=[steps], fmt="XYZ"),
+        ]
+
+    out = tmp_path / "port"
+    chains = TL.load_chains(str(cfg), args=args, device="cpu")
+    sim = Simulation(chains, algorithms(TMB), steps, path=str(out))
+    assert sim.neighbour_mode == "dense"
+    sim.run()
+    JSimulation(JL.load_chains(str(cfg), args=args), algorithms(JMB), steps, path=str(tmp_path / "jax")).run()
+    assert _layout(out) == _layout(tmp_path / "jax")
+    for k in (1, 2):
+        e = np.loadtxt(out / "chains" / str(k) / "energy.dat")
+        np.testing.assert_array_equal(e[:, 0], sched[sched <= steps])
+        assert (out / "chains" / str(k) / "trajectory.exyz").read_text().count("Lattice=") == len(e)
+        assert TF.read_xyz((out / "chains" / str(k) / "lastframe.xyz").read_text())["N"] == 48
+    acc = np.loadtxt(out / "moves" / "2" / "acceptance.dat")
+    assert ((acc[:, 1] >= 0) & (acc[:, 1] <= 1)).all() and acc[-1, 1] > 0
+    e1, e2 = (np.loadtxt(out / "chains" / str(k) / "energy.dat")[:, 1] for k in (1, 2))
+    assert not np.allclose(e1[1:], e2[1:])
+    st = sim.mc.system
+    e_dense = total_energy_dense(st.position, st.species, st.box, chains.table)
+    np.testing.assert_allclose(st.energy.numpy(), e_dense.numpy(), rtol=1e-9, atol=1e-9)
+    assert e1[-1] == pytest.approx(float(st.energy[0]) / 48, abs=1e-9)
+    assert (sim.mc.attempted.sum(dim=1) == steps * 48).all()
+    assert "Neighbour mode: dense" in (out / "simulation.log").read_text()
+
+
+@pytest.mark.parametrize("cells", [False, True], ids=["dense", "force_cells"])
+def test_cli_end_to_end_sequential(tmp_path, cells):
+    """tests/test_simulation.py::test_cli_end_to_end through the port's CLI
+    with parallel_moves = false: the JAX CLI's output layout, the energy
+    rows and the ledger; list_parameters.force_cells turns on the cell list
+    (with its warning) and the summary names the mode."""
+    _write_config(tmp_path / "config.xyz", n=150, density=0.5)
+    lp = "{force_cells = true, cap = 24}" if cells else "{inner = 2}"
+    text = (PARAMS.format(out=tmp_path / "port")
+            .replace("parallel_moves = true", "parallel_moves = false\nsweepstep = 50")
+            .replace("list_parameters = {inner = 2, rebin_every = 4}", f"list_parameters = {lp}")
+            .replace("density = 1.19", "density = 0.5"))
+    text += """
+[[simulation.move]]
+action = "DiscreteSwap"
+probability = 0.3
+policy = "DoubleUniform"
+parameters = {species = [1, 3]}
+"""
+    ptoml = tmp_path / "params.toml"
+    ptoml.write_text(text)
+    if cells:
+        with pytest.warns(UserWarning, match="cell-list"):
+            sim = cli.run_file(str(ptoml), device="cpu")
+    else:
+        sim = cli.run_file(str(ptoml), device="cpu")
+    out = tmp_path / "port"
+    assert sim.neighbour_mode == ("cell" if cells else "dense")
+    assert (sim.mc.cell is not None) == cells
+    if cells:
+        assert sim.config.cell_spec.cap == 24
+    e = np.loadtxt(out / "chains" / "1" / "energy.dat")
+    np.testing.assert_array_equal(e[:, 0], [0, 5, 10])
+    assert (out / "moves" / "2" / "acceptance.dat").exists()
+    st = sim.mc.system
+    e_dense = total_energy_dense(st.position, st.species, st.box, sim.chains.table)
+    np.testing.assert_allclose(st.energy.numpy(), e_dense.numpy(), rtol=1e-9, atol=1e-9)
+    assert f"Neighbour mode: {sim.neighbour_mode}" in (out / "simulation.log").read_text()
+    if not cells:
+        ptoml_j = tmp_path / "params_jax.toml"
+        ptoml_j.write_text(text.replace(str(tmp_path / "port"), str(tmp_path / "jax")))
+        assert j_main([str(ptoml_j)]) == 0
+        assert _layout(out) == _layout(tmp_path / "jax")
+
+
+def test_sequential_per_chain_boxes(tmp_path):
+    """Chains with their own boxes run on the dense path; the cell list
+    refuses them."""
+    _write_config(tmp_path / "config.xyz", n=48, density=0.5)
+    args = {"temperature": 1.5, "model": "JBB", "nsim": 2, "list_type": "CellList",
+            "list_parameters": {"force_cells": True}}
+    chains = TL.load_chains(str(tmp_path / "config.xyz"), args=args, device="cpu")
+    st = chains.states
+    chains.states = st.replace(position=st.position * torch.tensor([1.0, 1.1])[:, None, None],
+                               box=st.box * torch.tensor([1.0, 1.1])[:, None])
+    algos = [dict(algorithm="Metropolis", pool=(TMB.displacement(0.1),), seed=1)]
+    with pytest.raises(ValueError, match="share one box"):
+        Simulation(chains, algos, 2, path=str(tmp_path / "a"))
+    chains.list_type = "dense"
+    chains.states = chains.states.replace(energy=total_energy_dense(
+        chains.states.position, chains.states.species, chains.states.box, chains.table))
+    sim = Simulation(chains, algos, 2, path=str(tmp_path / "b")).run()
+    s = sim.mc.system
+    np.testing.assert_allclose(s.energy.numpy(), total_energy_dense(s.position, s.species, s.box, chains.table).numpy(),
+                               rtol=1e-9)
+    assert not torch.equal(s.box[0], s.box[1])
 
 
 def test_cli_missing_file():

@@ -66,3 +66,20 @@ def mixed_table(dtype, device):
         [e02, e12, slj(0.75, 0.94)],
     ]
     return TT.build_pair_table(entries, dtype, device)
+
+
+def trimer_melt(n_mol, density, seed):
+    """A melt of n_mol equilateral trimers (species 1, 2, 3, bonded all to
+    all) on a cubic lattice of molecule centres, jittered by 0.02:
+    positions [3 n_mol, 3], species, molecule ids (1-based) and per-particle
+    bond lists."""
+    rng = np.random.default_rng(seed)
+    n, d = 3 * n_mol, 3
+    L = (n / density) ** (1 / d)
+    per = int(np.ceil(n_mol ** (1 / d)))
+    a = L / per
+    centres = np.stack(np.meshgrid(*[np.arange(per) * a + a / 2] * d, indexing="ij"), -1).reshape(-1, d)[:n_mol]
+    tri = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.5, 0.866, 0.0]])
+    pos = (centres[:, None, :] + tri[None]).reshape(n, d) + rng.uniform(-0.02, 0.02, (n, d))
+    bonds = [[3 * (k // 3) + o for o in range(3) if o != k % 3] for k in range(n)]
+    return pos, np.tile([1, 2, 3], n_mol), np.repeat(np.arange(1, n_mol + 1), 3), bonds
