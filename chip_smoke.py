@@ -42,6 +42,22 @@ Then the sequential kernel (no kernel launch), each path with a traced
   checkerboard (ReplicaExchange every 8 steps, kernel launches counted),
   then the kernel against its plain version at the tempered run's shapes
   (4 chains, each with its own temperature's thresholds).
+Then PGMC and checkpoints:
+- library_pgmc: examples/pgmc-ka2d/run-study.py's configuration (2D JBB,
+  N = 1290, 10 chains, f64) through Simulation on the checkerboard backend,
+  Displacement + two EnergyBias swaps learned from theta = 0 (VPG), 40
+  sweeps with an estimate, an update and a parameters row every 10; then
+  one estimate() on the card against the CPU on the same actions, the
+  estimator's milliseconds, launches and synchronisations per call, and
+  the kernel against its plain version at this path's shapes with the
+  learned sigma and theta;
+- library_pgmc_sequential: the reference's test/pgmc_ka2d.jl scenario (N =
+  43, 10 chains, the sequential dense kernel, VPG + BLANPG, an estimate
+  every sweep, an update every 2), 20 sweeps (no kernel launch);
+- checkpoint: examples/movie through the CLI, 64 steps with a checkpoint at
+  32 and a --resume from it, and large-2d-dense on the sequential kernel (8
+  chains, 4 sweeps, a checkpoint at 2): each resumed run ends bitwise where
+  the straight-through run ends.
 It then prints the launcher's cells per block and shared memory at each
 kernel path's shapes. Every phase prints one JSON line, and a `wall_seconds`
 line gives each phase's wall time; any failure raises and the exit code is
@@ -776,12 +792,13 @@ KA2D_BLOCKS = 4
 KA2D_THETA = {(0, 2): (0.49, -0.35), (1, 2): (0.11, 1.62)}
 
 
-def ka2d_chains(device, seed=0):
-    """KA2D_CHAINS perturbed 2D lattices, species shuffled in the 20:11:12
-    composition, as run-study.py builds them."""
+def ka2d_chains(device, seed=0, n=None, chains=None):
+    """`chains` (KA2D_CHAINS) perturbed 2D lattices of `n` (KA2D_N)
+    particles, species shuffled in the 20:11:12 composition, as
+    run-study.py builds them."""
     from particlesmc_tpu_torch.core.state import make_system
 
-    n, d = KA2D_N, 2
+    n, d = n or KA2D_N, 2
     rng = np.random.default_rng(seed)
     L = (n / KA2D_RHO) ** (1 / d)
     per = int(np.ceil(n ** (1 / d)))
@@ -791,7 +808,7 @@ def ka2d_chains(device, seed=0):
     na, nb = round(n * KA2D_COMPOSITION[0] / tot), round(n * KA2D_COMPOSITION[1] / tot)
     base = np.concatenate([np.full(na, 1), np.full(nb, 2), np.full(n - na - nb, 3)])
     pos, sp = [], []
-    for _ in range(KA2D_CHAINS):
+    for _ in range(chains or KA2D_CHAINS):
         pos.append(grid + rng.uniform(-0.05 * a, 0.05 * a, (n, d)))
         s = base.copy()
         rng.shuffle(s)
@@ -853,9 +870,11 @@ def phase_library_energy_bias(device):
     return launches, (cb, spec, table, pool, params, inner, runs)
 
 
-def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs):
-    """The kernel against its plain version at the library_energy_bias
-    path's shapes, on its final state (float64, B = 10): alone, at every run
+def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs, path="library_energy_bias"):
+    """The kernel against its plain version at a pgmc-ka2d path's shapes
+    (library_energy_bias or library_pgmc, `path`), on its final state
+    (float64, B = 10; sigma from pool[0], the sweep's parameters from
+    `params`): alone, at every run
     length that path's schedule launches (the plain version timed at the
     longest); then one whole sweep of the mixed pool, which cuts each
     colour into kernel runs on slices of the draws with the live centre
@@ -898,7 +917,7 @@ def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs):
     sweep_out = {"position_max_abs_err": pos_err, "energy_max_rel_err": e_rel,
                  "accepted": k_cb.accepted.sum(dim=0).tolist()}
     shapes = _shapes(substep_inputs(cb.system, table, spec, lengths[-1], sigma))
-    emit({"phase": "kernel_vs_plain", "path": "library_energy_bias", "shapes": shapes,
+    emit({"phase": "kernel_vs_plain", "path": path, "shapes": shapes,
           "run_lengths": lengths, "f64": {str(n): v for n, v in by_length.items()}, "sweep": sweep_out})
     errs = {"max_abs_err": max(v["max_abs_err"] for v in by_length.values()),
             "booked_max_rel_err": max(v["booked_max_rel_err"] for v in by_length.values())}
@@ -1350,6 +1369,268 @@ def phase_cli_tempering(device):
     return (out["checkerboard"]["launches"],) + phase_cli_kernel_vs_plain(sim, "cli_tempering")
 
 
+# --- PGMC (examples/pgmc-ka2d/run-study.py, and the reference's own
+# test/pgmc_ka2d.jl scenario) -----------------------------------------------
+PGMC_STEPS, PGMC_EVERY, PGMC_Q, PGMC_TIMED = 40, 10, 10, 5
+PGMC_SEQ_N, PGMC_SEQ_CHAINS, PGMC_SEQ_STEPS = 43, 10, 20
+CKPT_STEPS, CKPT_SEQ_CHAINS, CKPT_SEQ_STEPS = 64, 8, 4
+
+
+def pgmc_pool(MB):
+    """run-study.py's pool from theta = 0: Displacement sigma 0.05 (p 0.8),
+    EnergyBias swaps 1<->3 and 2<->3 (p 0.1 each)."""
+    return (
+        MB.displacement(0.05, probability=0.8),
+        MB.discrete_swap(0, 2, 0.1, policy="energy_bias"),
+        MB.discrete_swap(1, 2, 0.1, policy="energy_bias"),
+    )
+
+
+def pgmc_sim(device, tmp, sequential):
+    """The PGMC run as a Simulation on `device`: the pgmc-ka2d system on the
+    checkerboard backend (run-study.py's optimisers VPG(1e-3), VPG(3e-2) x 2,
+    q_batch_size 10, an estimate every 10 sweeps, an update and a
+    StoreParameters row every 10), or the N = 43 scenario on the sequential
+    dense kernel (VPG(1e-3), BLANPG(1e-4, 1e-6) x 2, an estimate every
+    sweep, an update every 2); and its StoreParameters schedule."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.engine.pgmc import BLANPG, VPG
+    from particlesmc_tpu_torch.engine.schedule import build_schedule
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+
+    table = T.JBB(torch.float64, device)
+    small = dict(n=PGMC_SEQ_N, chains=PGMC_SEQ_CHAINS) if sequential else {}
+    st = initialize_energy(ka2d_chains(device, **small), table)
+    if sequential:
+        steps, every, upd = PGMC_SEQ_STEPS, 1, 2
+        optimisers = (VPG(1e-3), BLANPG(1e-4, 1e-6), BLANPG(1e-4, 1e-6))
+    else:
+        steps, every, upd = PGMC_STEPS, PGMC_EVERY, PGMC_EVERY
+        optimisers = (VPG(1e-3), VPG(3e-2), VPG(3e-2))
+    sched = build_schedule(steps, 0, upd)
+    algorithms = [
+        dict(algorithm="Metropolis", pool=pgmc_pool(MB), seed=42, parallel_moves=not sequential),
+        dict(algorithm="PolicyGradientEstimator", optimisers=optimisers, q_batch_size=PGMC_Q, q_every=every),
+        dict(algorithm="PolicyGradientUpdate", scheduler=sched),
+        dict(algorithm="StoreParameters", scheduler=sched),
+    ]
+    chains = Chains(states=st, table=table, list_type="dense" if sequential else "cell", n_chains=st.n_chains)
+    return Simulation(chains, algorithms, steps, path=tmp, verbose=False), sched
+
+
+def estimate_cpu_vs_card(sim, tmp, sequential):
+    """One estimate() on the card and one on the CPU twin of the run (its
+    final state and theta), on the same fed-in actions drawn on the card:
+    each learnable move's accumulated g and F, elementwise within 1e-9
+    relative (1e-12 of the largest entry absolute)."""
+    pg = sim._pgmc
+    st = sim.mc.system
+    props = [
+        pg.sample_prop(sim.pool_params[m], m, pg.generator, st, None, pg.q_batch_size) if learn else None
+        for m, learn in enumerate(pg.learnable)
+    ]
+    twin, _ = pgmc_sim(torch.device("cpu"), tmp, sequential)
+    twin.mc = twin.mc.replace(system=st.replace(**{
+        f: getattr(st, f).cpu() for f in ("position", "species", "box", "temperature", "density", "energy")
+    }))
+    twin.pool_params = tuple({k: v.cpu() for k, v in p.items()} for p in sim.pool_params)
+    out = {}
+    for g, props_g in ((pg, props), (twin._pgmc, [None if p is None else type(p)(*(t.cpu() for t in p))
+                                                  for p in props])):
+        g._acc = [None] * len(g._acc)
+        g.estimate(props_g)
+    errs = {}
+    for m, learn in enumerate(pg.learnable):
+        if not learn:
+            continue
+        for k, name in ((0, "g"), (1, "F")):
+            a, b = pg._acc[m][k].cpu(), twin._pgmc._acc[m][k]
+            scale = float(b.abs().max())
+            err = (a - b).abs() / torch.clamp_min(b.abs(), 1e-12 * scale)
+            errs[f"{m}.{name}"] = float(err.max())
+            assert scale > 0 and errs[f"{m}.{name}"] <= 1e-9, f"move {m} {name}: card and CPU differ by {err.max()}"
+        out[m] = {"g": pg._acc[m][0].tolist()}
+    pg._acc = [None] * len(pg._acc)  # the comparison's estimates are not kept
+    return {"max_rel_err": errs, "card_g": out}
+
+
+def estimator_cost(sim):
+    """Milliseconds of one estimate() on the card (CUDA events, median of
+    PGMC_TIMED), and the device launches and stream synchronisations of one
+    traced call."""
+    pg = sim._pgmc
+    ms = _time_ms(pg.estimate, runs=PGMC_TIMED)
+    prof = profile_block(pg.estimate)
+    pg._acc = [None] * len(pg._acc)  # the timed estimates are not kept
+    return {"estimate_ms": ms, "estimate_device_launches": prof["device_launches"],
+            "estimate_stream_syncs": prof["stream_syncs"], "estimate_device_busy_ms": prof["device_busy_ms"],
+            "estimate_idle_share": prof["idle_share"], "estimate_top": prof["top_glue"]}
+
+
+def run_pgmc(device, sequential):
+    """Drive one PGMC path and check it: kernel launches, moved and finite
+    sigma and theta, one parameters.dat row per StoreParameters event,
+    compositions, the ledger against the dense recompute, the card's
+    estimate against the CPU's."""
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sim, sched = pgmc_sim(device, tmp, sequential)
+        st0 = sim.mc.system
+        counts0 = species_counts(st0.species, 3)
+        theta0 = [{k: float(v) for k, v in p.items()} for p in sim.pool_params]
+        cb_cuda.disp_substep.launches = 0
+        t0 = time.perf_counter()
+        sim.run()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = cb_cuda.disp_substep.launches
+        rows = [np.loadtxt(os.path.join(tmp, "moves", str(m + 1), "parameters.dat"), ndmin=2) for m in range(3)]
+        vs_cpu = estimate_cpu_vs_card(sim, os.path.join(tmp, "cpu"), sequential)
+    theta = [{k: float(v) for k, v in p.items()} for p in sim.pool_params]
+    flat0 = [v for p in theta0 for v in p.values()]
+    flat = [v for p in theta for v in p.values()]
+    assert all(math.isfinite(v) for v in flat), theta
+    assert all(a != b for a, b in zip(flat, flat0)), f"a parameter did not move: {theta0} -> {theta}"
+    assert theta[0]["sigma"] > 0
+    for r, p in zip(rows, theta):
+        assert r.shape == (len(sched), 1 + len(p)), r.shape
+        np.testing.assert_array_equal(r[:, 0], sched)
+    st = sim.mc.system
+    assert torch.equal(species_counts(st.species, 3), counts0), "a swap changed a chain's composition"
+    e = total_energy_dense(st.position, st.species, st.box, sim.chains.table)
+    rel = float(((st.energy - e).abs() / e.abs()).max())
+    assert rel <= 1e-9, f"ledger differs from the dense recompute by {rel} relative"
+    n, chains, steps = st.n_particles, st.n_chains, int(sim.steps)
+    if sequential:
+        expected, runs = 0, None
+    else:
+        expected, runs = expected_launches(sim.pool, sim.cb_spec, sim.inner, sim.sweepstep, steps)
+    assert launches == expected, f"{launches} kernel launches, expected {expected}"
+    out = {
+        "N": n, "chains": chains, "precision": "f64", "steps": steps, "backend": sim.neighbour_mode,
+        "q_batch_size": sim._pgmc.q_batch_size, "q_every": sim._pgmc_every,
+        "optimisers": [repr(o) for o in sim._pgmc.optimisers],
+        "run_seconds": elapsed, "sweep_seconds": sim.sweep_seconds,
+        "sweeps_per_s": steps * chains / elapsed, "sweeps_per_s_sweeps_alone": steps * chains / sim.sweep_seconds,
+        "launches": launches, "theta_start": theta0, "theta_end": theta, "parameter_rows": len(sched),
+        "acceptance": move_acceptance(sim.mc), "ledger_max_rel_gap": rel, "estimate_card_vs_cpu": vs_cpu,
+        **estimator_cost(sim),
+    }
+    if not sequential:
+        out.update(cells=list(sim.cb_spec.ncells), cap=sim.cb_spec.cap, inner=sim.inner,
+                   sweeps_per_rebin=sim.rebin_every, kernel_run_lengths=runs)
+    return sim, launches, runs, out
+
+
+def phase_library_pgmc(device):
+    """examples/pgmc-ka2d/run-study.py's configuration through Simulation on
+    the checkerboard backend (2D JBB, N = 1290, 20:11:12, 10 chains, f64),
+    PGMC_STEPS sweeps; then the kernel against its plain version at this
+    path's shapes with the learned sigma and theta."""
+    from particlesmc_tpu_torch.moves import base as MB
+
+    sim, launches, runs, out = run_pgmc(device, sequential=False)
+    emit({"phase": "library_pgmc", "config": "pgmc-ka2d run-study.py (2D JBB 20:11:12, rho 1.19207, T 0.5)",
+          "cut": f"{PGMC_STEPS} sweeps of run-study's 2000", **out})
+    sigma = float(sim.pool_params[0]["sigma"])
+    pool = (MB.displacement(sigma, 0.8),) + sim.pool[1:]
+    kp, shapes = phase_bias_kernel_vs_plain(sim.mc, sim.cb_spec, sim.chains.table, pool, sim.pool_params,
+                                            sim.inner, runs, path="library_pgmc")
+    return launches, kp, shapes
+
+
+def phase_library_pgmc_sequential(device):
+    """The reference's own PGMC scenario (test/pgmc_ka2d.jl, as
+    tests/test_pgmc.py runs it): N = 43, 10 chains, the sequential dense
+    kernel, PGMC_SEQ_STEPS sweeps (no kernel launch)."""
+    _, _, _, out = run_pgmc(device, sequential=True)
+    emit({"phase": "library_pgmc_sequential", "config": "test/pgmc_ka2d.jl (2D JBB N = 43, 20:11:12)", **out})
+
+
+def states_equal(a, b):
+    """The fields of two sampler states that differ, by name: positions,
+    species, energies and counters (bitwise)."""
+    out = [f for f in ("position", "species", "energy") if not torch.equal(getattr(a.system, f), getattr(b.system, f))]
+    return out + [f for f in ("attempted", "accepted") if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def phase_checkpoint(device):
+    """Exact resume on the card: examples/movie through the CLI on the
+    checkerboard (the kernel path), 64 steps with StoreCheckpoints at 32,
+    then --resume from it; and large-2d-dense on the sequential dense kernel
+    (8 chains, 4 sweeps, a checkpoint at 2) through the library. Each
+    resumed run's final positions, species, energies and counters must equal
+    the straight-through run's bitwise."""
+    import warnings
+
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    out = {}
+    steps = CKPT_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        params = movie_params(
+            tmp, steps,
+            ("linear_interval = 500", "linear_interval = 16"),
+            ("linear_interval = 1000", f"linear_interval = {steps}"),
+        )
+        with open(params, "a") as f:
+            f.write('\n[[simulation.output]]\nalgorithm = "StoreCheckpoints"\n'
+                    f"scheduler_params = {{linear_interval = {steps // 2}}}\nhistory = true\n")
+        cb_cuda.disp_substep.launches = 0
+        a = cli.run_file(params)
+        launches_a = cb_cuda.disp_substep.launches
+        ckpt = os.path.join(tmp, f"checkpoint_{steps // 2}.npz")
+        energy_a = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
+        cb_cuda.disp_substep.launches = 0
+        t0 = time.perf_counter()
+        b = cli.run_file(params, resume=ckpt)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        launches_b = cb_cuda.disp_substep.launches
+        energy_b = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
+        size = os.path.getsize(ckpt)
+    differ = states_equal(a.mc, b.mc)
+    assert not differ, f"checkerboard resume: {differ} differ from the straight-through run"
+    assert a.mc.system.position.device.type == device.type and launches_b * 2 == launches_a > 0
+    tail = energy_a[energy_a[:, 0] > steps // 2]  # the rows the resumed run appends
+    assert energy_b.shape[0] == energy_a.shape[0] + len(tail) > energy_a.shape[0], "energy.dat was not appended to"
+    np.testing.assert_array_equal(energy_b[-len(tail):], tail)
+    out["checkerboard_cli"] = {"params": "examples/movie/params.toml", "steps": steps, "checkpoint_at": steps // 2,
+                               "bitwise": True, "launches": [launches_a, launches_b], "resume_seconds": resume_s,
+                               "checkpoint_bytes": size}
+
+    pool = (MB.displacement(SEQ_SIGMA),)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = sequential_sim(device, "large-2d-dense", CKPT_SEQ_CHAINS, pool, tmp)
+        half = CKPT_SEQ_STEPS // 2
+        algos = [dict(algorithm="Metropolis", pool=pool, seed=42), dict(algorithm="StoreCheckpoints", scheduler=[half])]
+        runs = []
+        for resume in (None, os.path.join(tmp, "checkpoint.npz")):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                sim = Simulation(base.chains, algos, CKPT_SEQ_STEPS, path=tmp, verbose=False, resume=resume)
+            t0 = time.perf_counter()
+            sim.run()
+            torch.cuda.synchronize()
+            runs.append((sim, time.perf_counter() - t0))
+    (a, ta), (b, tb) = runs
+    differ = states_equal(a.mc, b.mc)
+    assert not differ, f"sequential resume: {differ} differ from the straight-through run"
+    assert a.mc.system.position.device.type == device.type and b._start_step == half
+    assert int(a.mc.accepted.sum()) > 0
+    out["sequential_dense"] = {"scenario": "large-2d-dense", "chains": CKPT_SEQ_CHAINS, "precision": "mixed",
+                               "steps": CKPT_SEQ_STEPS, "checkpoint_at": half, "bitwise": True, "seconds": [ta, tb]}
+    emit({"phase": "checkpoint", **out})
+
+
 def phase_launch_plan(paths):
     """The launcher's cells (warps) per block and dynamic shared memory per
     block at each path's shapes."""
@@ -1404,6 +1685,9 @@ def main() -> int:
     timed(phase_library_sequential_swap, device)
     timed(phase_library_sequential_molecular, device)
     temper_launches, kt, temper_shapes = timed(phase_cli_tempering, device)
+    pgmc_launches, kp, pgmc_shapes = timed(phase_library_pgmc, device)
+    timed(phase_library_pgmc_sequential, device)
+    timed(phase_checkpoint, device)
     phase_launch_plan([
         ("library", torch.float32, lib_shapes),
         ("library", torch.float64, lib_shapes),
@@ -1411,6 +1695,7 @@ def main() -> int:
         ("cli_swap", torch.float32, swap_shapes),
         ("library_energy_bias", torch.float64, bias_shapes),
         ("cli_tempering", torch.float64, temper_shapes),
+        ("library_pgmc", torch.float64, pgmc_shapes),
     ])
     emit({"phase": "wall_seconds", **wall, "total": sum(wall.values())})
     f32 = kv["f32"]
@@ -1436,6 +1721,7 @@ def main() -> int:
         "cli_swap_f32": {"launches": swap_launches, **{k: ks[k] for k in keep}},
         "library_energy_bias_f64": {"launches": bias_launches, **{k: kb[k] for k in keep}, "sweep": kb["sweep"]},
         "cli_tempering_f64": {"launches": temper_launches, **{k: kt[k] for k in keep}},
+        "library_pgmc_f64": {"launches": pgmc_launches, **{k: kp[k] for k in keep}, "sweep": kp["sweep"]},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

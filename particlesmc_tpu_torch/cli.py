@@ -12,11 +12,14 @@ schema as the reference package:
 [[simulation.move]]    action / policy / probability / parameters
 [[simulation.output]]  algorithm / scheduler_params {linear_interval,
                        log_base} / callbacks / dependencies / fmt;
-                       AdaptiveSigma: move / target / kappa / sigma_max
+                       AdaptiveSigma: move / target / kappa / sigma_max;
+                       StoreCheckpoints: history
 
-The run is on the card unless `--device` names another device. Inputs
-outside the ported slice raise NotImplementedError naming the ROADMAP.md
-item that will port them.
+`--resume checkpoint.npz` continues a run from a StoreCheckpoints file
+(engine/simulation.py). PGMC (PolicyGradientEstimator) is library-only, as
+in the JAX package. The run is on the card unless `--device` names another
+device. Inputs outside the ported slice raise NotImplementedError naming the
+ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -93,6 +96,10 @@ def _build_outputs(output_cfgs, steps, burn):
             entry["dependencies"] = tuple(out.get("dependencies", ["Metropolis"]))
         elif alg in ("StoreTrajectories", "StoreLastFrames"):
             entry["fmt"] = out.get("fmt", "XYZ")
+        elif alg == "StoreCheckpoints":
+            entry["history"] = bool(out.get("history", False))
+        elif alg in ("PolicyGradientEstimator", "PolicyGradientUpdate"):
+            raise ValueError(f"{alg} runs through the library only (engine/pgmc.py), as in the JAX package")
         elif alg == "AdaptiveSigma":
             # schedule it over the burn-in window: it freezes after its last event
             if "move" in out:
@@ -118,8 +125,9 @@ PRECISIONS = {
 }
 
 
-def run_params(params: Dict[str, Any], device=None):
-    """Assemble and run a Simulation from a parsed TOML dict; returns it."""
+def run_params(params: Dict[str, Any], device=None, resume=None):
+    """Assemble and run a Simulation from a parsed TOML dict; returns it.
+    `resume` names a StoreCheckpoints file to continue from."""
     from .engine.simulation import Simulation
     from .io.loader import load_chains
 
@@ -169,12 +177,13 @@ def run_params(params: Dict[str, Any], device=None):
         steps,
         path=sim_cfg.get("output_path", "./"),
         verbose=bool(sim_cfg.get("verbose", True)),
+        resume=resume,
     )
     sim.run()
     return sim
 
 
-def run_file(path: str, device=None):
+def run_file(path: str, device=None, resume=None):
     """Run the simulation a params file describes; returns the Simulation.
 
     A relative `[system] config` that does not exist under the working
@@ -186,7 +195,7 @@ def run_file(path: str, device=None):
         beside = os.path.join(os.path.dirname(os.path.abspath(path)), cfg)
         if os.path.exists(beside):
             params["system"]["config"] = beside
-    return run_params(params, device=device)
+    return run_params(params, device=device, resume=resume)
 
 
 def main(argv=None) -> int:
@@ -199,14 +208,18 @@ def main(argv=None) -> int:
         "--device", default=None,
         help="torch device to run on (default: cuda; 'cpu' runs the plain versions)",
     )
-    parser.add_argument("--resume", default=None, help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--resume", default=None, metavar="CHECKPOINT",
+        help="continue from a StoreCheckpoints file (its outputs are appended to)",
+    )
     args = parser.parse_args(sys.argv[1:] if argv is None else list(argv))
-    if args.resume is not None:
-        raise unported("--resume (checkpoints)", 11)
     if not os.path.isfile(args.params):
         print(f"Parameter file '{args.params}' does not exist in the current path.")
         return 1
-    run_file(args.params, device=args.device)
+    if args.resume is not None and not os.path.isfile(args.resume):
+        print(f"Checkpoint file '{args.resume}' does not exist in the current path.")
+        return 1
+    run_file(args.params, device=args.device, resume=args.resume)
     return 0
 
 

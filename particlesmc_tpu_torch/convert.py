@@ -7,8 +7,8 @@ FENE/LJ bond parameters), a system's positions, species, box, density,
 temperature and energy ledger and, for a molecular system, its molecule ids
 and padded bond lists, a checkerboard sampler's arrays (planes, including
 the molecular planes, bins, counters) and a sequential sampler's counters
-and cell list. The random state does not: JAX keys have no torch
-counterpart.
+and cell list, and the pool's policy parameters. The random state does
+not: JAX keys have no torch counterpart.
 """
 
 from __future__ import annotations
@@ -69,6 +69,14 @@ def system_from_numpy(
         molecule=i64(molecule),
         bonds=i64(bonds),
     )
+
+
+def pool_params_from_numpy(params, dtype=torch.float64, device=None):
+    """The pool's policy parameters (a tuple of dicts of tensors, as
+    moves.base.init_pool_params makes them) from a tuple of dicts of
+    arrays, such as the JAX package's."""
+    device = resolve_device(device)
+    return tuple({k: _float(v, dtype, device) for k, v in p.items()} for p in params)
 
 
 def cb_state_from_numpy(

@@ -192,6 +192,55 @@ def per_particle_energies(
     return torch.cat(per, dim=1)
 
 
+def per_particle_energies_of(position, species, box, table: PairTable, bonds=None, cand_fn=None, kinds=None):
+    """per_particle_energies of Q species assignments on each chain's
+    positions: species [B, Q, N] -> [B, Q, N]. The distances (and, with
+    `cand_fn`, the candidates) are computed once per chain and shared by its
+    Q assignments; the pair buffers [B, Q, rows, M] are chunked over
+    particles within _PAIR_BUDGET elements."""
+    B, n, _ = position.shape
+    Q = species.shape[1]
+    iota = torch.arange(n, device=position.device)
+    width = n if cand_fn is None else None
+    box_b = box[:, None, None, :]
+    per = []
+    k0 = 0
+    while k0 < n:
+        if width is None:  # the candidates' width, from a one-row call
+            width = cand_fn(iota[:1].expand(B, 1)).shape[-1]
+        rows = max(1, min(n - k0, _PAIR_BUDGET // max(1, B * Q * width)))
+        k = iota[k0:k0 + rows].expand(B, -1)  # [B, R]
+        xk = position[:, k0:k0 + rows, None, :]
+        sk = species[:, :, k0:k0 + rows, None]  # [B, Q, R, 1]
+        if cand_fn is None:
+            cands = iota
+            r2 = dist2(position[:, None], xk, box_b)  # [B, R, N]
+            sc = species[:, :, None, :]
+            valid = iota != k[..., None]
+        else:
+            cands = cand_fn(k)  # [B, R, M]
+            r2 = dist2(take(position, cands), xk, box_b)
+            flat = torch.clamp_min(cands, 0).reshape(B, 1, -1).expand(B, Q, -1)
+            sc = torch.gather(species, 2, flat).reshape((B, Q) + cands.shape[1:])
+            valid = (cands >= 0) & (cands != k[..., None])
+        if bonds is not None:
+            bk = bonds[:, k0:k0 + rows]  # [B, R, maxb]
+            valid = valid & ~torch.any(cands[..., None] == bk[:, :, None, :], dim=-1)
+        u = pair_potential(r2[:, None], gather_pair(table, sk, sc, pair_fields_needed(kinds)), kinds)
+        e = torch.sum(torch.where(valid[:, None], u, 0.0), dim=-1)  # [B, Q, R]
+        if bonds is not None:
+            bvalid = bk >= 0
+            partner = torch.clamp_min(bk, 0)
+            r2b = dist2(take(position, partner), xk, box_b)  # [B, R, maxb]
+            flat = partner.reshape(B, 1, -1).expand(B, Q, -1)
+            sb = torch.gather(species, 2, flat).reshape((B, Q) + partner.shape[1:])
+            ub = bond_potential(r2b[:, None], gather_pair(table, sk, sb, BOND_FIELDS))
+            e = e + torch.sum(torch.where(bvalid[:, None], ub, 0.0), dim=-1)
+        per.append(e)
+        k0 += rows
+    return torch.cat(per, dim=2)
+
+
 def total_energy_dense(position, species, box, table: PairTable, bonds=None, chunk: int = 256):
     """Total energy sum_i E_i / 2 per chain -> [B] (per_particle_energies)."""
     return torch.sum(per_particle_energies(position, species, box, table, bonds, chunk), dim=-1) / 2

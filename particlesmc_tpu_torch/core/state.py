@@ -164,6 +164,13 @@ def mol_table(molecule):
     return starts.astype(np.int32), lengths.astype(np.int32)
 
 
+def shared_box(box) -> bool:
+    """Whether every chain's box [B, d] is allclose to chain 0's (numpy's
+    default tolerances, as the JAX engine tests it), so that the chains can
+    share one static grid, which is built from chain 0's box."""
+    return torch.allclose(box, box[:1].expand_as(box))
+
+
 def fold_positions(state: SystemState) -> SystemState:
     """Fold all positions into the primary box."""
     return state.replace(position=geometry.fold_back(state.position, state.box[:, None, :]))

@@ -19,9 +19,17 @@ Outputs and their directory layout:
 - StoreAcceptance   -> <path>/moves/<id>/acceptance.dat    rows "step rate"
 - StoreTrajectories -> <path>/chains/<k>/trajectory.<ext>  appended frames
 - StoreLastFrames   -> <path>/chains/<k>/lastframe.<ext>   restart file
+- StoreParameters   -> <path>/moves/<id>/parameters.dat    rows "step v1 v2 ..."
+- StoreCheckpoints  -> <path>/checkpoint.npz (checkpoint_<step>.npz with `history`)
 - PrintTimeSteps    -> progress and throughput to stdout
 - ReplicaExchange   -> <path>/tempering_acceptance.dat     rows "step rate"
 - AdaptiveSigma     -> <path>/moves/<id>/sigma.dat         rows "step sigma rate"
+- PolicyGradientEstimator / PolicyGradientUpdate: PGMC (engine/pgmc.py); the
+  estimator's `optimisers`, `q_batch_size` and `q_every` ride in its entry
+
+`resume=<checkpoint>` continues a run from a StoreCheckpoints file: state,
+counters, policy parameters and step are restored, and the outputs are
+appended to instead of truncated.
 """
 
 from __future__ import annotations
@@ -36,6 +44,8 @@ import numpy as np
 import torch
 
 from ..core import neighbours as NB
+from ..core.state import shared_box
+from ..io import checkpoint as CKPT
 from ..io import formats
 from ..io.loader import Chains
 from ..moves import checkerboard as CBK
@@ -49,16 +59,11 @@ FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
 
 OUTPUTS = (
     "StoreCallbacks", "StoreAcceptance", "StoreTrajectories", "StoreLastFrames",
-    "PrintTimeSteps", "ReplicaExchange", "AdaptiveSigma",
+    "StoreParameters", "StoreCheckpoints", "PrintTimeSteps", "ReplicaExchange",
+    "AdaptiveSigma", "PolicyGradientEstimator", "PolicyGradientUpdate",
 )
-# outputs of the reference package that later slices port, with their
+# callbacks of the reference package that a later slice ports, with their
 # ROADMAP.md queue-1 item
-UNPORTED_OUTPUTS = {
-    "PolicyGradientEstimator": 10,
-    "PolicyGradientUpdate": 10,
-    "StoreParameters": 10,
-    "StoreCheckpoints": 11,
-}
 UNPORTED_CALLBACKS = {"pressure": 12, "chain_correlation": 12}
 
 
@@ -98,8 +103,6 @@ def _normalise_algorithm(entry) -> Algorithm:
 
 def _check_outputs(outputs):
     for a in outputs:
-        if a.name in UNPORTED_OUTPUTS:
-            raise unported(f"the {a.name} algorithm", UNPORTED_OUTPUTS[a.name])
         if a.name not in OUTPUTS:
             raise ValueError(f"Unsupported output algorithm: {a.name}")
         for cb in a.callbacks:
@@ -121,6 +124,7 @@ class Simulation:
         steps: int,
         path: str = "./",
         verbose: bool = False,
+        resume: Optional[str] = None,
     ):
         self.chains = chains
         self.steps = int(steps)
@@ -128,6 +132,7 @@ class Simulation:
         self.verbose = verbose
         self._tput_mark: Optional[Tuple[float, int]] = None  # (wall, step)
         self.sweep_seconds = 0.0  # wall time of the sweeps alone, outputs excluded
+        self._start_step = 0
 
         algos = [_normalise_algorithm(a) for a in algorithm_list]
         metro = [a for a in algos if a.name == "Metropolis"]
@@ -181,7 +186,43 @@ class Simulation:
                 raise ValueError("ReplicaExchange needs a scheduler")
             self._rex = ReplicaExchange(self, seed=self.seed)
             self._rex_sched = set(int(t) for t in rex[0].scheduler)
+        self._pgmc = None
+        est = [a for a in self.outputs if a.name == "PolicyGradientEstimator"]
+        if est:
+            from .pgmc import PGMC
+
+            e = est[0].extra
+            self._pgmc = PGMC(self, tuple(e.get("optimisers", ())), int(e.get("q_batch_size", 10)))
+            upd = [a for a in self.outputs if a.name == "PolicyGradientUpdate"]
+            self._pgmc_update_sched = (
+                set(int(t) for t in upd[0].scheduler) if upd and upd[0].scheduler is not None else set()
+            )
+            # estimate every q_every sweeps (1, the reference's cadence, by
+            # default); larger values let the engine issue q_every sweeps
+            # between two estimates
+            self._pgmc_every = max(1, int(e.get("q_every", 1)))
+        self._truncate_outputs = resume is None  # a resumed run appends
+        if resume is not None:
+            self._resume(resume)
         self._event_times = self._collect_event_times()
+
+    def _resume(self, path: str):
+        """Restore state, counters, policy parameters and step from a
+        StoreCheckpoints file."""
+        st = self.chains.states
+        dtype, device = st.position.dtype, st.position.device
+        if self.parallel_moves:
+            self.mc, self.pool_params, self._start_step = CKPT.load_checkpoint_checkerboard(
+                path, self.cb_spec, dtype, device
+            )
+        else:
+            self.mc, self.pool_params, self._start_step = CKPT.load_checkpoint(path, self.config, dtype, device)
+        if self._start_step >= self.steps:
+            raise ValueError(
+                f"checkpoint is at step {self._start_step}, past the requested {self.steps} steps"
+            )
+        if self.verbose:
+            print(f"resumed from {path} at step {self._start_step}")
 
     def _init_checkerboard(self):
         """The checkerboard backend: one static grid for all chains."""
@@ -194,7 +235,7 @@ class Simulation:
         box0 = st.box[0].double().cpu().numpy()
         molecular = st.is_molecular
         self.max_bonds = int(st.bonds.shape[-1]) if molecular else 0
-        if not torch.equal(st.box, st.box[:1].expand_as(st.box)):
+        if not shared_box(st.box):
             raise ValueError(
                 "parallel_moves requires all chains to share one box "
                 "(the checkerboard grid is static)"
@@ -228,7 +269,7 @@ class Simulation:
         if chains.list_type in ("cell", "verlet") and (
             n > K.DENSE_DELTA_MAX or bool(params.get("force_cells", False))
         ):
-            if not torch.equal(st.box, st.box[:1].expand_as(st.box)):
+            if not shared_box(st.box):
                 raise ValueError(
                     "cell-list mode requires all chains to share one box (the "
                     "grid is static); use list_type 'dense' for per-chain boxes"
@@ -293,6 +334,8 @@ class Simulation:
         for a in self.outputs:
             if a.scheduler is not None:
                 times.update(int(t) for t in a.scheduler)
+        if self._pgmc is not None:
+            times.update(range(0, self.steps + 1, self._pgmc_every))
         return np.asarray(sorted(t for t in times if 0 <= t <= self.steps), np.int64)
 
     # ------------------------------------------------------------------
@@ -301,6 +344,8 @@ class Simulation:
             os.makedirs(os.path.join(self.path, "chains", str(k + 1)), exist_ok=True)
         for m in range(len(self.pool)):
             os.makedirs(os.path.join(self.path, "moves", str(m + 1)), exist_ok=True)
+        if not self._truncate_outputs:
+            return
         # truncate append-mode files from previous runs
         for a in self.outputs:
             if a.name == "StoreCallbacks":
@@ -315,6 +360,9 @@ class Simulation:
             elif a.name == "StoreAcceptance":
                 for m in range(len(self.pool)):
                     open(self._move_file(m, "acceptance.dat"), "w").close()
+            elif a.name == "StoreParameters":
+                for m in range(len(self.pool)):
+                    open(self._move_file(m, "parameters.dat"), "w").close()
             elif a.name == "ReplicaExchange":
                 open(os.path.join(self.path, "tempering_acceptance.dat"), "w").close()
             elif a.name == "AdaptiveSigma":
@@ -384,6 +432,19 @@ class Simulation:
                     text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, True))
                     with open(self._chain_file(k, f"lastframe{ext}"), "w") as f:
                         f.write(text)
+            elif a.name == "StoreParameters":
+                for m, p in enumerate(self.pool_params):
+                    if not p:
+                        continue
+                    vals = " ".join(f"{float(v):.12g}" for v in p.values())
+                    with open(self._move_file(m, "parameters.dat"), "a") as f:
+                        f.write(f"{t} {vals}\n")
+            elif a.name == "StoreCheckpoints":
+                name = f"checkpoint_{t}.npz" if a.extra.get("history") else "checkpoint.npz"
+                CKPT.save_checkpoint(
+                    os.path.join(self.path, name), self.mc, self.pool_params, t,
+                    extra={"backend": "cb" if self.parallel_moves else "seq"},
+                )
             elif a.name == "PrintTimeSteps":
                 # sweeps/s since the previous print, outputs included
                 self._sync()
@@ -446,8 +507,9 @@ class Simulation:
         lines = self.write_summary()
         if self.verbose:
             print("\n".join(lines))
-        t = 0
-        self._fire_outputs(0)
+        t = self._start_step
+        if t == 0:
+            self._fire_outputs(0)
         for nxt in self._event_times:
             if nxt <= t:
                 continue
@@ -459,6 +521,11 @@ class Simulation:
                 self._rex.step()
                 with open(os.path.join(self.path, "tempering_acceptance.dat"), "a") as f:
                     f.write(f"{t} {self._rex.rate:.12g}\n")
+            if self._pgmc is not None:
+                if t % self._pgmc_every == 0 or t == self.steps:
+                    self._pgmc.estimate()
+                if t in self._pgmc_update_sched:
+                    self._pgmc.update()
             self._fire_outputs(t)
         self.check_health()
         return self

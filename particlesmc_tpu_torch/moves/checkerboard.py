@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..core.geometry import fold_back
-from ..core.state import SystemState
+from ..core.state import SystemState, shared_box
 from ..models.potentials import (
     PAIR_FIELDS,
     bond_potential,
@@ -234,9 +234,9 @@ def unbin_positions(planes, idx, n: int, shift, box):
 
 def init_cb_state(system: SystemState, spec: CBSpec, seed, n_moves: int = 1) -> CBState:
     """Initial sampler state; `seed` is an int or a torch.Generator on the
-    state's device. All chains must share one box (the grid is static)."""
-    box = system.box
-    if not torch.equal(box, box[:1].expand_as(box)):
+    state's device. All chains must share one box (the grid is static):
+    boxes allclose to chain 0's, which sets the cell bounds."""
+    if not shared_box(system.box):
         raise ValueError("the checkerboard grid needs all chains to share one box")
     dev = system.position.device
     if isinstance(seed, torch.Generator):
@@ -383,7 +383,8 @@ def extract_colour(padded, spec: CBSpec, c):
 
 def cell_bounds(spec: CBSpec, box_row, c):
     """lo, hi [d, A] of colour `c`'s active cells in the shifted frame
-    (one box shared by all chains)."""
+    (one box shared by all chains; the hyper-sweep passes chain 0's, where
+    the JAX package takes each chain's own)."""
     grids = np.meshgrid(*[2 * np.arange(a) for a in spec.active_dims], indexing="ij")
     coords = np.stack([g.reshape(-1) for g in grids], axis=-1) + np.asarray(c)  # [A, d]
     dt = box_row.dtype

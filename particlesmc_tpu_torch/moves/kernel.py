@@ -62,8 +62,10 @@ import numpy as np
 import torch
 
 from ..core import neighbours as NB
-from ..core.energy import Override, particle_energy, particle_energy_nogather, per_particle_energies, take
-from ..core.state import SystemState
+from ..core.energy import (
+    Override, particle_energy, particle_energy_nogather, per_particle_energies, per_particle_energies_of, take,
+)
+from ..core.state import SystemState, shared_box
 from ..models.tables import PairTable, kinds_present
 from .base import Move
 
@@ -89,6 +91,22 @@ class Proposal(NamedTuple):
     sp_j: torch.Tensor
     log_q_fwd: torch.Tensor
     log_q_rev: torch.Tensor
+
+
+class Action(NamedTuple):
+    """A proposal as the policy-gradient estimator evaluates it
+    (engine/pgmc.py): the step's record without its log q, plus the
+    displacement δ (zeros for a swap or a flip), which the reward and the
+    log-q functions read. Fields [B, *S], pos_i and delta [B, *S, d]. The
+    step's Proposal carries no δ: each field there costs a torch.where per
+    step."""
+
+    i: torch.Tensor
+    j: torch.Tensor
+    pos_i: torch.Tensor
+    sp_i: torch.Tensor
+    sp_j: torch.Tensor
+    delta: torch.Tensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +179,7 @@ def init_mc_state(system: SystemState, config: KernelConfig, seed) -> MCState:
         gen.manual_seed(int(seed))
     cell = None
     if config.cell_spec is not None:
-        if not torch.equal(system.box, system.box[:1].expand_as(system.box)):
+        if not shared_box(system.box):
             raise ValueError("the cell list needs all chains to share one box")
         cell = NB.build_cell_list(system.position, system.box, config.cell_spec)
     B = system.n_chains
@@ -381,6 +399,166 @@ def make_proposal_fns(config: KernelConfig, n: int):
 
 
 # ---------------------------------------------------------------------------
+# ΔE, log q and reward as functions of a proposal: the step reads the ΔE,
+# the policy-gradient estimator all three
+# ---------------------------------------------------------------------------
+
+
+def _delta_e(config: KernelConfig, kinds, pos, sp, box, bonds, cell, prop, x_i=None):
+    """(e1, e2) [B, *S]: the energies of i and j before and after proposals
+    with fields [B, *S], each of j's terms only when j != i. The four
+    evaluations (i old, j old, i new, j new) are rows of one energy call, a
+    row per proposal and evaluation. `x_i` (i's position) is read from `pos`
+    unless given."""
+    i, j = prop.i, prop.j
+    B = i.shape[0]
+    mi = torch.full_like(i, -1)
+    z = torch.zeros_like(i)
+    zx = torch.zeros_like(prop.pos_i)
+
+    def rows(*ts):
+        """[B, *S, *t] each -> [B, len(ts) * S, *t], evaluation-major."""
+        s = torch.stack(ts, dim=1)
+        return s.reshape((B, -1) + s.shape[1 + i.dim():])
+
+    ks = rows(i, j, i, j)
+    ov = Override(
+        i=rows(mi, mi, i, i), j=rows(mi, mi, j, j), pos_i=rows(zx, zx, prop.pos_i, prop.pos_i),
+        sp_i=rows(z, z, prop.sp_i, prop.sp_i), sp_j=rows(z, z, prop.sp_j, prop.sp_j),
+    )
+    table = config.table
+    if config.cell_spec is None:
+        e4 = particle_energy_nogather(ks, pos, sp, box, table, bonds, ov, kinds)
+    else:
+        if x_i is None:
+            x_i = take(pos, i)
+        q = rows(x_i, take(pos, j), prop.pos_i)
+        c = NB.candidates_around(q, box, cell, config.cell_spec)  # [B, 3 * S, M]
+        c = c.reshape((B, 3, -1, c.shape[-1]))
+        cands = torch.cat([c, c[:, 1:2]], dim=1)  # rows: i old, j, i new, j
+        e4 = particle_energy(ks, cands.reshape((B, -1, c.shape[-1])), pos, sp, box, table, bonds, ov, kinds)
+    e4 = e4.reshape((B, 4) + i.shape[1:])
+    pair = (j != i).to(e4.dtype)
+    return e4[:, 0] + pair * e4[:, 1], e4[:, 2] + pair * e4[:, 3]
+
+
+def build_delta_e_fn(config: KernelConfig, n: int) -> Callable:
+    """delta_e(system, cell, prop) -> (e1, e2) [B, *S]: the energies of the
+    touched particles before and after proposals `prop` (a Proposal or an
+    Action with fields [B, *S]) on `system`, dense over all N particles or,
+    when the config has a grid, over the candidates of the cell list
+    `cell`."""
+    kinds = kinds_present(config.table)  # once: reads the table on the host
+
+    def delta_e(system: SystemState, cell, prop):
+        return _delta_e(config, kinds, system.position, system.species, system.box, system.bonds, cell, prop)
+
+    return delta_e
+
+
+def chain_energies(config, kinds, system, cell, species=None):
+    """Per-particle energies of the chains [B, N], or of Q species
+    assignments per chain [B, Q, N] when `species` [B, Q, N] is given:
+    dense, or over each particle's cell candidates."""
+    n = system.n_particles
+    cand_fn = None
+    if config.cell_spec is not None:
+        def cand_fn(k):
+            return NB.candidates_around(take(system.position, k), system.box, cell, config.cell_spec)
+    if species is None:
+        return per_particle_energies(
+            system.position, system.species, system.box, config.table, system.bonds, chunk=n,
+            cand_fn=cand_fn, kinds=kinds,
+        )
+    return per_particle_energies_of(
+        system.position, species, system.box, config.table, system.bonds, cand_fn=cand_fn, kinds=kinds,
+    )
+
+
+def energy_bias_logq(config, kinds, system, cell, params, s1, s2, i, j):
+    """(log q_fwd, log q_rev) [B, *S] of picking the pairs (i, j) [B, *S]
+    under EnergyBias with theta1 and theta2 (tensors broadcast against i):
+    i from species s1 with probability ∝ exp(theta1 E_i), j from s2 ∝
+    exp(theta2 E_j). The reverse density is evaluated in the post-swap
+    configuration of each pair."""
+    th1, th2 = params["theta1"], params["theta2"]
+    sp = system.species
+    B, n = sp.shape
+    shape = i.shape
+    e_all = chain_energies(config, kinds, system, cell)
+    i2, j2 = i.reshape(B, -1), j.reshape(B, -1)  # [B, Q]
+    t1 = torch.as_tensor(th1).expand(shape).reshape(B, -1, 1)
+    t2 = torch.as_tensor(th2).expand(shape).reshape(B, -1, 1)
+    m1, m2 = (sp == s1)[:, None], (sp == s2)[:, None]
+    ea = e_all[:, None]
+    lse1 = _masked_logsumexp(t1 * ea, m1)
+    lse2 = _masked_logsumexp(t2 * ea, m2)
+    log_q_fwd = t1[..., 0] * take(e_all, i2) + t2[..., 0] * take(e_all, j2) - lse1 - lse2
+    Q = i2.shape[1]
+    sp2 = sp[:, None].expand(B, Q, n).clone()
+    sp2.scatter_(2, i2[..., None], take(sp, j2)[..., None])
+    sp2.scatter_(2, j2[..., None], take(sp, i2)[..., None])
+    e2_all = chain_energies(config, kinds, system, cell, sp2)  # [B, Q, N]
+    lse1b = _masked_logsumexp(t1 * e2_all, sp2 == s1)
+    lse2b = _masked_logsumexp(t2 * e2_all, sp2 == s2)
+    pick = lambda e, k: torch.gather(e, 2, k[..., None])[..., 0]  # noqa: E731
+    log_q_rev = t1[..., 0] * pick(e2_all, j2) + t2[..., 0] * pick(e2_all, i2) - lse1b - lse2b
+    return log_q_fwd.reshape(shape), log_q_rev.reshape(shape)
+
+
+def make_logq_fns(config: KernelConfig, n: int):
+    """Per pool move, `logq(prop, system, cell, params) -> (log q_fwd,
+    log q_rev)` [B, *S] recomputed from a fixed Action: the differentiable
+    path of the policy gradient through the move's parameters, which may be
+    tensors broadcast against the action's [B, *S] (one copy per sample)."""
+    kinds = kinds_present(config.table)
+    fns = []
+    for mv in config.pool:
+        if mv.action == "displacement":
+
+            def f(prop, system, cell, params):
+                d = system.dim
+                s2 = params["sigma"] ** 2
+                norm2 = torch.sum(prop.delta * prop.delta, dim=-1)
+                lq = -norm2 / (2 * s2) - d * torch.log(2.0 * math.pi * s2) / 2
+                return lq, lq
+
+        elif mv.action == "swap" and mv.policy == "double_uniform":
+
+            def f(prop, system, cell, params, s1=mv.species[0], s2=mv.species[1]):
+                sp = system.species
+                n12 = torch.sum(sp == s1, dim=-1) * torch.sum(sp == s2, dim=-1)
+                lq = -torch.log(n12.to(system.position.dtype))
+                lq = lq.reshape((-1,) + (1,) * (prop.i.dim() - 1)).expand(prop.i.shape)
+                return lq, lq
+
+        elif mv.action == "swap" and mv.policy == "energy_bias":
+
+            def f(prop, system, cell, params, s1=mv.species[0], s2=mv.species[1]):
+                return energy_bias_logq(config, kinds, system, cell, params, s1, s2, prop.i, prop.j)
+
+        elif mv.action == "flip":
+
+            def f(prop, system, cell, params):
+                lq = torch.full(prop.i.shape, -math.log(2.0), dtype=system.position.dtype,
+                                device=prop.i.device)
+                return lq, lq
+
+        else:
+            raise ValueError(f"no log q for move {mv}")
+        fns.append(f)
+    return fns
+
+
+def move_reward(mv: Move) -> Callable:
+    """The policy-gradient reward of an action, `reward(prop, system)`
+    [B, *S]: |δ|² for a displacement, 1 for a swap or a flip."""
+    if mv.action == "displacement":
+        return lambda prop, system: torch.sum(prop.delta * prop.delta, dim=-1)
+    return lambda prop, system: torch.ones(prop.i.shape, dtype=system.position.dtype, device=prop.i.device)
+
+
+# ---------------------------------------------------------------------------
 # The step and the sweep
 # ---------------------------------------------------------------------------
 
@@ -453,15 +631,7 @@ class _Kernel:
     def energies(self, position, species, w):
         """Per-particle energies [B, N] (EnergyBias): dense, or over each
         particle's cell candidates."""
-        st = w.system
-        cand_fn = None
-        if self.spec is not None:
-            def cand_fn(k):
-                return NB.candidates_around(take(position, k), st.box, w.cell, self.spec)
-        return per_particle_energies(
-            position, species, st.box, self.config.table, st.bonds, chunk=self.n, cand_fn=cand_fn,
-            kinds=self.kinds,
-        )
+        return chain_energies(self.config, self.kinds, w.system.replace(position=position, species=species), w.cell)
 
     def draw_sweep(self, mc: MCState, steps: int):
         """One sweep's draws from the state's generator (the Gumbel noise is
@@ -550,33 +720,9 @@ class _Kernel:
         return accept
 
     def delta_e(self, w: _Work, prop: Proposal, x_i):
-        """(e1, e2) [B]: the energies of i and j before and after the
-        proposal, each of j's terms only when j != i."""
+        """(e1, e2) [B] of the step's proposals on the working state."""
         st = w.system
-        pos, sp = w.position, w.species
-        i, j = prop.i, prop.j
-        mi = torch.full_like(i, -1)
-        z = torch.zeros_like(i)
-        zx = torch.zeros_like(prop.pos_i)
-        ks = torch.stack([i, j, i, j], dim=1)
-        ov = Override(
-            i=torch.stack([mi, mi, i, i], dim=1),
-            j=torch.stack([mi, mi, j, j], dim=1),
-            pos_i=torch.stack([zx, zx, prop.pos_i, prop.pos_i], dim=1),
-            sp_i=torch.stack([z, z, prop.sp_i, prop.sp_i], dim=1),
-            sp_j=torch.stack([z, z, prop.sp_j, prop.sp_j], dim=1),
-        )
-        table = self.config.table
-        if self.spec is None:
-            e4 = particle_energy_nogather(ks, pos, sp, st.box, table, st.bonds, ov, self.kinds)
-        else:
-            x_j = _at(pos, j)
-            q = torch.stack([x_i, x_j, prop.pos_i], dim=1)
-            c = NB.candidates_around(q, st.box, w.cell, self.spec)  # [B, 3, M]
-            cands = torch.cat([c, c[:, 1:2]], dim=1)  # rows: i old, j, i new, j
-            e4 = particle_energy(ks, cands, pos, sp, st.box, table, st.bonds, ov, self.kinds)
-        pair = (j != i).to(e4.dtype)
-        return e4[:, 0] + pair * e4[:, 1], e4[:, 2] + pair * e4[:, 3]
+        return _delta_e(self.config, self.kinds, w.position, w.species, st.box, st.bonds, w.cell, prop, x_i)
 
     def prepare(self, mc: MCState, steps: int, draws):
         """The sweep's draws (checked when fed in) and species counts."""

@@ -1,8 +1,8 @@
 """Tests that need an NVIDIA GPU (marker `cuda`; they skip without one):
 the CUDA kernel against its plain version, the main path on the card
-against the same path on the CPU, and the sequential kernel and a
-replica-exchange pass on the card against the CPU. Run on a machine with
-the card:
+against the same path on the CPU, the sequential kernel, a replica-exchange
+pass and the PGMC estimator on the card against the CPU, and bitwise resume
+from a checkpoint on the card. Run on a machine with the card:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
@@ -24,7 +24,7 @@ from particlesmc_tpu_torch.moves import cb_cuda
 from particlesmc_tpu_torch.moves import checkerboard as CB
 from particlesmc_tpu_torch.moves import kernel as K
 
-from .test_torch_inputs import lattice, make_inputs, mixed_table, trimer_melt
+from .test_torch_inputs import ka2d, lattice, make_inputs, mixed_table, trimer_melt
 
 pytestmark = pytest.mark.cuda
 
@@ -269,3 +269,81 @@ def test_replica_exchange_cuda_matches_cpu(cuda):
     g.manual_seed(1)
     c, att, _ = replica_exchange(b, 1, generator=g)
     assert c.system.position.is_cuda and att.cpu().tolist() == [False, True, False]
+
+
+def _pgmc_sim(dev, path):
+    """The reference PGMC scenario (N = 43 2D JBB, 2 chains, float64) with
+    Displacement + an EnergyBias swap at θ ≠ 0 and an estimator of 5
+    samples per chain, on `dev`."""
+    from particlesmc_tpu_torch.engine.pgmc import BLANPG, VPG
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+
+    pos, sp, rho = ka2d(2)
+    table = TT.JBB(torch.float64, dev)
+    st = initialize_energy(make_system(pos, sp, rho, 0.5, device=dev), table)
+    pool = (MB.displacement(0.08, 0.8), MB.discrete_swap(0, 2, 0.2, policy="energy_bias", theta1=0.3, theta2=-0.2))
+    algos = [dict(algorithm="Metropolis", pool=pool, seed=3),
+             dict(algorithm="PolicyGradientEstimator", optimisers=(VPG(1e-3), BLANPG(1e-4, 1e-6)), q_batch_size=5)]
+    return Simulation(Chains(states=st, table=table, list_type="dense", n_chains=2), algos, 1, path=str(path))
+
+
+def test_pgmc_estimate_cuda_matches_cpu(cuda, tmp_path):
+    """Each chain's (g, F) of both learnable moves on the card equals the
+    CPU's on the same fed-in actions within 1e-9 relative; estimate() from
+    the estimator's own generator issues no host synchronisation."""
+    cpu, card = _pgmc_sim(torch.device("cpu"), tmp_path / "a"), _pgmc_sim(cuda, tmp_path / "b")
+    gen = torch.Generator().manual_seed(5)
+    for m in (0, 1):
+        prop = cpu._pgmc.sample_prop(cpu.pool_params[m], m, gen, cpu.mc.system, None, 5)
+        ref = cpu._pgmc.per_chain(m, prop)
+        out = card._pgmc.per_chain(m, K.Action(*(t.to(cuda) for t in prop)))
+        for a, b in zip(ref, out):
+            assert b.is_cuda and float(a.abs().max()) > 0
+            np.testing.assert_allclose(b.cpu().numpy(), a.numpy(), rtol=1e-9, atol=1e-12 * float(a.abs().max()))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card._pgmc.estimate()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(a is not None for a in card._pgmc._acc)
+    card._pgmc.update()
+    assert torch.isfinite(card.pool_params[1]["theta1"]).item()
+
+
+@pytest.mark.parametrize("backend", ["sequential", "checkerboard"])
+def test_resume_bitwise_cuda(cuda, tmp_path, backend):
+    """On the card, a run resumed from its mid-run StoreCheckpoints file ends
+    bitwise where the straight-through run ends (positions, species,
+    energies, counters); the card's checkpoint does not load on the CPU."""
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io import checkpoint as CKPT
+    from particlesmc_tpu_torch.io.loader import Chains
+
+    cb = backend == "checkerboard"
+    n = 140 if cb else 48
+    pos, sp = lattice(n, 2, 0.5, seed=3)
+    table = TT.KobAndersen(torch.float64, cuda)
+    pool = (MB.displacement(0.1, 0.7), MB.discrete_swap(0, 1, 0.3))
+    metro = dict(algorithm="Metropolis", pool=pool, seed=3, parallel_moves=cb)
+
+    def sim(resume=None):
+        st = initialize_energy(make_system(pos, sp, 0.5, 1.2, device=cuda), table).repeat(2)
+        chains = Chains(states=st, table=table, list_type="dense", n_chains=2,
+                        list_parameters={"inner": 2, "rebin_every": 2} if cb else {})
+        return Simulation(chains, [metro, dict(algorithm="StoreCheckpoints", scheduler=[4], history=True)], 8,
+                          path=str(tmp_path), resume=resume)
+
+    a = sim().run()
+    ckpt = str(tmp_path / "checkpoint_4.npz")
+    b = sim(ckpt).run()
+    for f in ("position", "species", "energy"):
+        assert torch.equal(getattr(a.mc.system, f), getattr(b.mc.system, f)), f
+    assert torch.equal(a.mc.attempted, b.mc.attempted) and torch.equal(a.mc.accepted, b.mc.accepted)
+    assert a.mc.system.position.is_cuda and int(a.mc.accepted.sum()) > 0
+    with pytest.raises(ValueError, match="cuda generator state .* cpu device"):
+        if cb:
+            CKPT.load_checkpoint_checkerboard(ckpt, a.cb_spec, device="cpu")
+        else:
+            CKPT.load_checkpoint(ckpt, a.config, device="cpu")

@@ -21,6 +21,30 @@ def lattice(n, d, density, seed):
     return pos, species
 
 
+def ka2d(m, n_side=None, density=1.1920748468939728, seed=42):
+    """tests/test_pgmc.py's start: m jittered 2D lattices of N = 43
+    (species 1:2:3 as 20:11:12, the reference PGMC scenario's) or of
+    n_side^2 particles (half species 1, a quarter each 2 and 3), species
+    1-based and shuffled per chain; returns positions [m, N, 2], species
+    [m, N] and the density."""
+    rng = np.random.default_rng(seed)
+    if n_side is None:
+        n, per, counts = 43, 7, (20, 11, 12)
+    else:
+        n, per = n_side * n_side, n_side
+        counts = (n - 2 * (n // 4), n // 4, n // 4)
+    L = (n / density) ** 0.5
+    a = L / per
+    grid = np.stack(np.meshgrid(*[np.arange(per) * a + a / 2] * 2, indexing="ij"), -1).reshape(-1, 2)[:n]
+    pos, sps = [], []
+    for _ in range(m):
+        pos.append(grid + rng.uniform(-0.05 * a, 0.05 * a, (n, 2)))
+        sp = np.concatenate([np.full(c, s + 1) for s, c in enumerate(counts)])
+        rng.shuffle(sp)
+        sps.append(sp)
+    return np.stack(pos), np.stack(sps), density
+
+
 def make_inputs(d, cap, inner, n_species, chains=2, A=4, seed=0):
     """Random packed lanes of A cells per chain for the colour substep: each
     centre cell and its 3^d - 1 neighbours hold a random number of particles
