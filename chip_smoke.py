@@ -58,6 +58,18 @@ Then PGMC and checkpoints:
   32 and a --resume from it, and large-2d-dense on the sequential kernel (8
   chains, 4 sweeps, a checkpoint at 2): each resumed run ends bitwise where
   the straight-through run ends.
+Then the observables and the last checkerboard paths:
+- analysis: the virial pressure and g(r) of 8 of the library path's final
+  chains on the card against the CPU, and a 32-step examples/movie run
+  through the CLI with profile_dir (a trace file) whose 16 stored frames
+  give the MSD and F_s(k, t) on the card against the CPU;
+- library_trim: the main path with trim = "auto" (512 neighbour lanes,
+  LP 544), its kernel launches, compaction time and ledger, and the kernel
+  against its plain version at the trimmed shapes;
+- library_spatial: one KA-LJ system of N = 633,017 (a 32^3 grid) as 2 and 4
+  slabs on the card against the unsharded run (bitwise in float64), with a
+  DoubleUniform swap pool too, sweeps/s at P = 1, 2, 4, the halo exchange's
+  device time, and the kernel against its plain version at a slab's shapes.
 It then prints the launcher's cells per block and shared memory at each
 kernel path's shapes. Every phase prints one JSON line, and a `wall_seconds`
 line gives each phase's wall time; any failure raises and the exit code is
@@ -229,7 +241,7 @@ def body_ops(tab):
     return out.to(tab.device)
 
 
-def needed_ops(args, acc):
+def needed_ops(args, acc, cap=None):
     """Operations the function needs on these inputs, replaying the sub-moves
     with the accepts `acc` [B, A, inner]. Only a sub-move of an occupied cell
     whose proposal stays inside the cell needs its energy change; it needs,
@@ -245,7 +257,7 @@ def needed_ops(args, acc):
     packed_pos, packed_sp, up, dl, _, lo, hi, tab = args
     B, d, A, LP = packed_pos.shape
     inner = up.shape[1]
-    cap = LP // 3**d
+    cap = LP // 3**d if cap is None else cap  # cap= : compacted lanes, LP = cap + K
     S = tab.shape[-1]
     dev = packed_pos.device
     body = body_ops(tab).reshape(-1)
@@ -301,12 +313,12 @@ def needed_ops(args, acc):
     return float(ops), design
 
 
-def bound_ms(args, outs, dtype):
+def bound_ms(args, outs, dtype, cap=None):
     """Least time the card could take: the larger of the bytes moved (each
     input read once, each output written once) over the HBM rate and the
     operations these inputs need (needed_ops) over the peak rate of their
     type."""
-    ops, design = needed_ops(args, outs[2])
+    ops, design = needed_ops(args, outs[2], cap)
     nbytes = sum(t.numel() * t.element_size() for t in list(args) + list(outs))
     t_ops = ops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -319,15 +331,17 @@ def bound_ms(args, outs, dtype):
 BOOKED_RTOL = {torch.float64: 1e-12, torch.float32: 5e-4}
 
 
-def compare(args, kinds, time_plain=True):
-    """The kernel's variant for `kinds` against its plain version on `args`:
-    asserts agreement and returns the errors, both times (the plain one only
-    if `time_plain`) and the bound."""
+def compare(args, kinds, time_plain=True, cap=None):
+    """The kernel's variant for `kinds` against its plain version on `args`
+    (`cap`: the centre lanes of compacted lanes, LP = cap + K): asserts
+    agreement and returns the errors, both times (the plain one only if
+    `time_plain`) and the bound."""
     from particlesmc_tpu_torch.moves import cb_cuda
 
     dtype = args[0].dtype
-    k_out = cb_cuda.disp_substep(*args, kinds=kinds)
-    p_out = cb_cuda.disp_substep_plain(*args)
+    lanes = {} if cap is None else {"cap": cap}
+    k_out = cb_cuda.disp_substep(*args, kinds=kinds, **lanes)
+    p_out = cb_cuda.disp_substep_plain(*args, **lanes)
     torch.cuda.synchronize()
     acc_k = k_out[2].sum(dim=-1)
     acc_p = p_out[2].sum(dim=-1)
@@ -348,9 +362,9 @@ def compare(args, kinds, time_plain=True):
         assert max_err <= 1e-5, f"f32 positions differ by {max_err}"
     assert booked_rel <= BOOKED_RTOL[dtype], f"booked energy differs by {booked_rel} relative"
     assert n_acc > 0, "no sub-move was accepted"
-    kernel_ms = _time_ms(lambda: cb_cuda.disp_substep(*args, kinds=kinds), runs=20, warmup=3)
-    plain_ms = _time_ms(lambda: cb_cuda.disp_substep_plain(*args), runs=3) if time_plain else None
-    b_ms, b_by, ops, design = bound_ms(args, k_out, dtype)
+    kernel_ms = _time_ms(lambda: cb_cuda.disp_substep(*args, kinds=kinds, **lanes), runs=20, warmup=3)
+    plain_ms = _time_ms(lambda: cb_cuda.disp_substep_plain(*args, **lanes), runs=3) if time_plain else None
+    b_ms, b_by, ops, design = bound_ms(args, k_out, dtype, cap)
     return dict(
         variant=VARIANT_NAMES[cb_cuda.kernel_variant(kinds)],
         kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, ops=ops,
@@ -359,10 +373,10 @@ def compare(args, kinds, time_plain=True):
     )
 
 
-def _shapes(args):
+def _shapes(args, cap=None):
     B, d, A, LP = args[0].shape
-    return {"B": B, "d": d, "A": A, "cap": LP // 3**d, "LP": LP, "inner": args[2].shape[1],
-            "S": args[-1].shape[-1]}
+    return {"B": B, "d": d, "A": A, "cap": LP // 3**d if cap is None else cap, "LP": LP,
+            "inner": args[2].shape[1], "S": args[-1].shape[-1]}
 
 
 # every kind: the kernel's generic variant, which any table may take
@@ -399,8 +413,10 @@ def phase_kernel_vs_plain(device):
 def profile_block(run_block):
     """Device time of one block by torch.profiler: the kernel's, the
     sub-moves' that are not the kernel's (by their profiler range, per
-    kind), the rest of the PyTorch glue's, and the device's idle share of
-    the block's span; and the host's stream synchronisations in it."""
+    kind), the rest of the PyTorch glue's (which includes the candidate
+    compaction's and the halo exchange's ranges, also given alone as
+    `ranges_ms`), and the device's idle share of the block's span; and the
+    host's stream synchronisations in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from particlesmc_tpu_torch.moves.checkerboard import SUBMOVE_RANGE
@@ -412,7 +428,7 @@ def profile_block(run_block):
     events = prof.events()
     # the ranges' own annotations on the device timeline are not device work
     evs = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.name.startswith(SUBMOVE_RANGE)]
+           and not e.name.startswith("cb_")]
     assert evs, "the profiler saw no device activity"
     by_name = {}
     for e in evs:
@@ -420,12 +436,14 @@ def profile_block(run_block):
     span = (max(e.time_range.end for e in evs) - min(e.time_range.start for e in evs)) / 1e3
     busy = sum(by_name.values())
     kernel = sum(v for k, v in by_name.items() if "disp_substep_kernel" in k)
-    submoves, ranges = {}, {}
+    submoves, ranges, other_ranges = {}, {}, {}
     for e in events:
         if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith(SUBMOVE_RANGE):
             kind = e.name[len(SUBMOVE_RANGE):]
             submoves[kind] = submoves.get(kind, 0.0) + e.device_time_total / 1e3
             ranges[kind] = ranges.get(kind, 0) + 1
+        elif e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cb_"):
+            other_ranges[e.name] = other_ranges.get(e.name, 0.0) + e.device_time_total / 1e3
     sub = sum(submoves.values())
     syncs = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
                 and e.name == "cudaStreamSynchronize")
@@ -436,6 +454,7 @@ def profile_block(run_block):
         "submove_ms": submoves, "submove_calls": ranges, "submove_share": sub / span,
         "glue_ms": busy - kernel - sub, "glue_share": (busy - kernel - sub) / span,
         "device_launches": len(evs), "stream_syncs": syncs, "top_glue": [[k[:80], v] for v, k in top[:5]],
+        "ranges_ms": other_ranges,
     }
 
 
@@ -536,7 +555,7 @@ def phase_library(device):
         "ledger_gap_per_particle": gap, "profiled_block": profile,
         "energy_per_particle": (ledger / N).tolist(),
     })
-    return launches
+    return launches, cb, profile
 
 
 def movie_params(tmp, steps, *edits):
@@ -1631,6 +1650,388 @@ def phase_checkpoint(device):
     emit({"phase": "checkpoint", **out})
 
 
+# --- the observables (analysis/, core/energy.py::pressure, profile_dir) ----
+ANA_CHAINS, ANA_CPU_PRESSURE_CHAINS, ANA_CPU_GR_CHAINS, ANA_STEPS = 8, 1, 2, 32
+
+
+def phase_analysis(device, cb):
+    """The observables on the card: the virial pressure of 8 of the library
+    path's final chains (KA-LJ N = 10,000, 3D; float32 positions taken to
+    float64) against a float64 CPU computation of chain 0 (rtol 1e-9), g(r)
+    of the 8 chains with the first 2 against the CPU (the same histogram
+    counts), then a 32-step examples/movie run through the CLI with
+    `profile_dir` (a non-empty trace file) whose 16 stored frames give the
+    MSD and F_s(k, t) on the card against the CPU (within 1e-12)."""
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.analysis import structure as A
+    from particlesmc_tpu_torch.core.energy import pressure
+    from particlesmc_tpu_torch.io import formats
+    from particlesmc_tpu_torch.models import tables as T
+
+    cpu = torch.device("cpu")
+    st = cb.system
+    k = ANA_CHAINS
+    pos, sp, box = st.position[:k].double(), st.species[:k], st.box[:k].double()
+    rho, temp = st.density[:k].double(), st.temperature[:k].double()
+    seconds = {}
+
+    def timed_s(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    table = T.KobAndersen(torch.float64, device)
+    p_card = timed_s("pressure_card", lambda: pressure(pos, sp, box, table, rho, temp))
+    # a second, warm call: the first one includes the first-use costs
+    timed_s("pressure_card_warm", lambda: pressure(pos, sp, box, table, rho, temp))
+    c = ANA_CPU_PRESSURE_CHAINS
+    p_cpu = timed_s("pressure_cpu", lambda: pressure(
+        pos[:c].cpu(), sp[:c].cpu(), box[:c].cpu(), T.KobAndersen(torch.float64, cpu), rho[:c].cpu(), temp[:c].cpu()))
+    p_rel = float(((p_card[:c].cpu() - p_cpu).abs() / p_cpu.abs()).max())
+    assert bool(torch.isfinite(p_card).all()) and p_rel <= 1e-9, f"pressure: card and CPU differ by {p_rel} relative"
+    nb, rmax = 200, 5.0
+    _, g_card = timed_s("gr_card", lambda: A.radial_distribution(pos, box[0], nbins=nb, rmax=rmax))
+    timed_s("gr_card_warm", lambda: A.radial_distribution(pos, box[0], nbins=nb, rmax=rmax))
+    c = ANA_CPU_GR_CHAINS
+    _, g_c2 = A.radial_distribution(pos[:c], box[0], nbins=nb, rmax=rmax)
+    _, g_cpu = timed_s("gr_cpu", lambda: A.radial_distribution(pos[:c].cpu(), box[0].cpu(), nbins=nb, rmax=rmax))
+    assert np.array_equal(g_c2, g_cpu), "g(r): the card's histogram differs from the CPU's"
+    peak = int(np.argmax(g_card))
+    assert np.isfinite(g_card).all() and 1.5 < g_card[peak] < 6.0, g_card[peak]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace")
+        params = movie_params(
+            tmp, ANA_STEPS,
+            ("seed = 10", f'seed = 10\nprofile_dir = "{trace}"'),
+            ("linear_interval = 500}\nfmt", "linear_interval = 2}\nfmt"),
+        )
+        t0 = time.perf_counter()
+        cli.run_file(params)
+        torch.cuda.synchronize()
+        seconds["movie_with_profile"] = time.perf_counter() - t0
+        traces = [os.path.join(trace, f) for f in os.listdir(trace) if f.endswith(".json")]
+        trace_bytes = max(os.path.getsize(f) for f in traces) if traces else 0
+        frames = formats.read_trajectory(os.path.join(tmp, "chains", "1", "trajectory.exyz"))
+    assert trace_bytes > 0, "profile_dir left no trace"
+    frames = frames[:16]
+    assert len(frames) == 16
+    traj = np.stack([f["position"] for f in frames])
+    tbox = np.asarray(frames[0]["box"], np.float64)
+    # numpy frames, as formats.read_trajectory gives them, on the card and on the CPU
+    msd_card = timed_s("msd_card", lambda: A.mean_squared_displacement(traj, tbox, device=device))
+    msd_cpu = A.mean_squared_displacement(traj, tbox, device=cpu)
+    unwrapped = A.unwrap_trajectory(traj, tbox, device=cpu)
+    fs_card = timed_s("fskt_card", lambda: A.self_intermediate_scattering(unwrapped, tbox, 7.4, device=device))
+    fs_cpu = A.self_intermediate_scattering(unwrapped, tbox, 7.4, device=cpu)
+    msd_err = float(np.abs(msd_card - msd_cpu).max())
+    fs_err = float(np.abs(fs_card - fs_cpu).max())
+    assert msd_err <= 1e-12 and fs_err <= 1e-12, (msd_err, fs_err)
+    assert msd_cpu[-1] > 0 and fs_cpu[0] == 1.0 and fs_cpu[-1] < 1.0
+    emit({
+        "phase": "analysis", "chains": k, "N": st.n_particles, "pressure": p_card.tolist(),
+        "pressure_max_rel_err": p_rel, "pressure_cpu_chains": ANA_CPU_PRESSURE_CHAINS,
+        "gr_peak_r": (peak + 0.5) * rmax / nb, "gr_peak": float(g_card[peak]),
+        "gr_cpu_chains": ANA_CPU_GR_CHAINS, "gr_counts_equal": True,
+        "movie_steps": ANA_STEPS, "frames": len(frames), "trace_bytes": trace_bytes,
+        "msd_last": float(msd_cpu[-1]), "fskt_last": float(fs_cpu[-1]),
+        "msd_max_abs_err": msd_err, "fskt_max_abs_err": fs_err, "seconds": seconds,
+    })
+
+
+# --- the main path with the candidate compaction (list_parameters trim = "auto")
+TRIM_TIMED_BLOCKS = 3
+# device launches of the untrimmed main path's traced block: a fixed count
+# (the block issues the same launches whatever the draws), which the
+# candidate compaction's code must leave as it was
+MAIN_DEVICE_LAUNCHES = 8320
+
+
+def phase_library_trim(device, kv, untrimmed_profile):
+    """The main path's configuration with trim = "auto" (auto_trim_k: 512
+    neighbour lanes, LP 544), after a check that the untrimmed library
+    block's traced device launches (`untrimmed_profile`) are still
+    MAIN_DEVICE_LAUNCHES: a warm-up and TRIM_TIMED_BLOCKS timed blocks, a
+    traced block, the ledger against a dense recompute; then the kernel
+    against its plain version at the trimmed shapes (f64 and f32), its ms
+    per launch beside the untrimmed LP 864 ones of kernel_vs_plain (`kv`).
+    Returns the launches, the comparisons and the shapes."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    # the untrimmed main path is unchanged (its kernel launches: phase_library)
+    untrimmed = untrimmed_profile["device_launches"]
+    assert untrimmed == MAIN_DEVICE_LAUNCHES, f"untrimmed block: {untrimmed} device launches"
+    pos, species = lattice_config(N)
+    table = T.KobAndersen(torch.float32, device)
+    st = make_system(pos, species, DENSITY, TEMPERATURE, dtype=torch.float32, device=device)
+    st = initialize_energy(st, table, energy_dtype=torch.float64).repeat(CHAINS)
+    box0 = st.box[0].double().cpu().numpy()
+    spec = CB.make_cb_spec(box0, table.max_cutoff, N, CAP)
+    trim_k = CB.auto_trim_k(spec, box0, table.max_cutoff, N)  # what trim = "auto" reads
+    assert trim_k == 512, trim_k
+    pool = (MB.displacement(SIGMA),)
+    params = MB.init_pool_params(pool, torch.float32, device)
+    hs = CB.build_hyper_sweep_fn(spec, table, N, inner=INNER, sweeps=REBIN, pool=pool, trim_k=trim_k,
+                                 trim_rcut=table.max_cutoff)
+    cb = CB.init_cb_state(st, spec, seed=0, n_moves=1)
+    cb = hs(cb, params)  # warm-up block
+    torch.cuda.synchronize()
+    att0, acc0, skip0 = int(cb.attempted.sum()), int(cb.accepted.sum()), int(cb.skipped.sum())
+    cb_cuda.disp_substep.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRIM_TIMED_BLOCKS):
+        cb = hs(cb, params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = cb_cuda.disp_substep.launches
+    expected, _ = expected_launches(pool, spec, INNER, N, REBIN * TRIM_TIMED_BLOCKS)
+    assert launches == expected > 0, f"{launches} kernel launches, expected {expected}"
+    attempted = int(cb.attempted.sum()) - att0
+    acceptance = (int(cb.accepted.sum()) - acc0) / max(1, attempted)
+    assert 0.0 < acceptance < 1.0, f"acceptance {acceptance}"
+    skipped = int(cb.skipped.sum()) - skip0
+    profile = profile_block(lambda: hs(cb, params))
+    e_dense = total_energy_dense(
+        cb.system.position[:2].double(), cb.system.species[:2], cb.system.box[:2].double(), table.astype(torch.float64)
+    )
+    gap = float((cb.system.energy[:2] - e_dense).abs().max()) / N
+    assert bool(torch.isfinite(cb.system.position).all()), "non-finite positions"
+    assert gap <= 1e-5, f"ledger differs from the dense recompute by {gap} per particle"
+
+    table64 = T.KobAndersen(torch.float64, device)
+    args64 = substep_inputs(bench_system(device), table64, spec, INNER, SIGMA)
+    pos_t, sp_t, _, ok = hs.plan.compact(args64[0], args64[1], None, args64[5], args64[6])
+    assert bool(ok.all()), "the comparison's lanes overflow trim_k"
+    args_t = (pos_t.contiguous(), sp_t.contiguous()) + tuple(args64[2:])
+    kinds = T.kinds_present(table64)
+    cb_cuda.disp_substep.launches = 0
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        key = "f64" if dtype == torch.float64 else "f32"
+        out[key] = compare(tuple(t.to(dtype) for t in args_t), kinds, cap=CAP)
+        out[key]["untrimmed_kernel_ms"] = kv[key]["kernel_ms"]
+    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    shapes = _shapes(args_t, cap=CAP)
+    assert shapes["LP"] == CAP + trim_k == 544
+    ranges = profile["ranges_ms"]
+    emit({
+        "phase": "library_trim", "N": N, "chains": CHAINS, "precision": "mixed", "trim": "auto",
+        "trim_k": trim_k, "LP": CAP + trim_k, "untrimmed_LP": 27 * CAP, "inner": INNER, "sweeps_per_rebin": REBIN,
+        "timed_blocks": TRIM_TIMED_BLOCKS, "seconds": elapsed, "sweeps_per_s": attempted / N / elapsed,
+        "block_ms": 1e3 * elapsed / TRIM_TIMED_BLOCKS, "acceptance": acceptance, "launches": launches,
+        "launches_per_block": launches // TRIM_TIMED_BLOCKS, "skipped": skipped,
+        "skipped_per_block_and_chain": skipped / (TRIM_TIMED_BLOCKS * CHAINS),
+        "compaction_device_ms": ranges.get(CB.TRIM_RANGE, 0.0), "ledger_gap_per_particle": gap,
+        "profiled_block": profile, "untrimmed_device_launches": untrimmed_profile["device_launches"],
+        "untrimmed_stream_syncs": untrimmed_profile["stream_syncs"], "shapes": shapes,
+        "kernel_ms_lp544": {k: v["kernel_ms"] for k, v in out.items()},
+        "kernel_ms_lp864": {k: v["kernel_ms"] for k, v in kv.items() if k in ("f32", "f64")},
+    })
+    emit({"phase": "kernel_vs_plain", "path": "library_trim", "shapes": shapes, **out})
+    return launches, out, shapes
+
+
+# --- one system over slabs (parallel/spatial.py) on one card ---------------
+SP_NC, SP_SIGMA, SP_INNER, SP_SWEEPS, SP_TIMED, SP_SLABS = 32, 0.06, 48, 2, 3, (2, 4)
+
+
+def cell_energy(st, k=None):
+    """Float64 particle energies from the sequential backend's cell list
+    (core/neighbours.py: its own binning and minimum-image distances, no code
+    of the checkerboard grid): particles k [B, R] against the candidates of
+    their 3^d cells -> [B, R]; without `k`, each chain's total energy [B]
+    (every particle's, summed and halved). The O(N^2) recompute's sums at
+    N = 633,000 without its N^2 pairs; phase_library_spatial holds them
+    against particle_energy_nogather (all N) on a sample."""
+    from particlesmc_tpu_torch.core import neighbours as NB
+    from particlesmc_tpu_torch.core.energy import particle_energy, take
+    from particlesmc_tpu_torch.models import tables as T
+
+    dev = st.position.device
+    table = T.KobAndersen(torch.float64, dev)
+    pos, box = st.position.double(), st.box.double()
+    B, n, d = pos.shape
+    spec = NB.make_spec(box[0].cpu().numpy(), table.max_cutoff, n)
+    clist = NB.build_cell_list(pos, box, spec)
+    assert not bool(clist.overflow.any()), "the recompute's cell list overflows its buckets"
+
+    def energies(kk):
+        cands = NB.candidates_around(take(pos, kk), box, clist, spec)
+        return particle_energy(kk, cands, pos, st.species, box, table)
+
+    if k is not None:
+        return energies(k)
+    rows = max(1, (1 << 23) // (B * 3**d * spec.cap))
+    iota = torch.arange(n, device=dev)
+    total = torch.zeros(B, dtype=torch.float64, device=dev)
+    for k0 in range(0, n, rows):
+        total += energies(iota[k0:k0 + rows].expand(B, -1)).sum(dim=-1)
+    return total / 2
+
+
+def sampled_energy_gap(st, count=1024, seed=0):
+    """The largest difference between cell_energy and the all-N sum
+    (particle_energy_nogather, float64) over `count` particles drawn from a
+    seed: a candidate the cell list missed shows here."""
+    from particlesmc_tpu_torch.core.energy import particle_energy_nogather
+    from particlesmc_tpu_torch.models import tables as T
+
+    dev = st.position.device
+    table = T.KobAndersen(torch.float64, dev)
+    pos, box = st.position.double(), st.box.double()
+    B, n = st.species.shape
+    gen = torch.Generator().manual_seed(seed)
+    k = torch.randperm(n, generator=gen)[:count].to(dev).expand(B, -1)
+    rows = max(1, (1 << 23) // (B * n))
+    dense = torch.cat([particle_energy_nogather(k[:, r:r + rows], pos, st.species, box, table)
+                       for r in range(0, k.shape[1], rows)], dim=1)
+    return float((cell_energy(st, k) - dense).abs().max())
+
+
+def spatial_system(device, dtype, temperature=TEMPERATURE):
+    """One KA-LJ system, 3D, rho 1.2, in a cubic box of side 32 * 2.5 * 1.01
+    (a 32^3 grid at the cutoff; N = 633,017), from a jittered lattice; the
+    ledger (float64) from cell_energy."""
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    L = SP_NC * 2.5 * 1.01
+    n = int(round(DENSITY * L**3))
+    pos, species = lattice_config(n, density=n / L**3)
+    st = make_system(pos, species, DENSITY, temperature, box=np.full(3, L), dtype=dtype, device=device)
+    spec = CB.make_cb_spec(np.full(3, L), 2.5, n)
+    assert spec.ncells == (SP_NC,) * 3, spec
+    return st.replace(energy=cell_energy(st)), spec
+
+
+def _spatial_run(fn, st, spec, pool, params):
+    """One call of `fn` from a fresh state, with its kernel launches (the
+    count set to 0 just before and read just after)."""
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
+    cb_cuda.disp_substep.launches = 0
+    cb = fn(cb, params)
+    torch.cuda.synchronize()
+    return cb, cb_cuda.disp_substep.launches
+
+
+def phase_library_spatial(device):
+    """One KA-LJ system of N = 633,017 (1 chain, the case the spatial path
+    exists for), sigma 0.06, inner 48, 2 sweeps per call, f64 and mixed:
+    P = 2 and 4 slabs on one card (a device list repeating cuda:0) against
+    the unsharded run on the same generator (f64: accepts, species and
+    positions bitwise; mixed: the f32 limits), then Displacement (0.8) +
+    DoubleUniform 1<->2 (0.2) at T 5.0 the same way; sweeps/s at P = 1
+    (unsharded), 2 and 4; kernel launches per call (P per kernel run per
+    colour); a traced call at P = 4 for the halo exchange's device ms; the
+    ledgers against cell_energy; the kernel against its plain version at a
+    P = 2 slab's shapes (f64). The nccl transport needs several cards and
+    is not run here."""
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+    from particlesmc_tpu_torch.parallel import mesh as PM
+    from particlesmc_tpu_torch.parallel import spatial as SP
+
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.core.state import make_system
+
+    # the recompute itself against the O(N^2) one, on the main path's start
+    pos, species = lattice_config(N)
+    st10 = make_system(pos, species, DENSITY, TEMPERATURE, device=device)
+    e_dense = total_energy_dense(st10.position, st10.species, st10.box, T.KobAndersen(torch.float64, device))
+    cell_rel = float(((cell_energy(st10) - e_dense).abs() / e_dense.abs()).max())
+    assert cell_rel <= 1e-12, f"cell_energy differs from the dense recompute by {cell_rel} relative"
+    out, launches_main = {"cell_energy_vs_dense_rel": cell_rel}, None
+    cases = (("f64", torch.float64, TEMPERATURE, (MB.displacement(SP_SIGMA),)),
+             ("mixed", torch.float32, TEMPERATURE, (MB.displacement(SP_SIGMA),)),
+             ("f64_swap", torch.float64, 5.0, (MB.displacement(SP_SIGMA, 0.8), MB.discrete_swap(0, 1, 0.2))))
+    for name, dtype, temp, pool in cases:
+        st, spec = spatial_system(device, dtype, temp)
+        n = st.n_particles
+        table = T.KobAndersen(dtype, device)
+        params = MB.init_pool_params(pool, dtype, device)
+        fns = {1: CB.build_hyper_sweep_fn(spec, table, n, inner=SP_INNER, sweeps=SP_SWEEPS, pool=pool)}
+        for P in SP_SLABS:
+            fns[P] = SP.build_spatial_hyper_sweep_fn(spec, table, n, PM.make_mesh(device=[device] * P),
+                                                    inner=SP_INNER, sweeps=SP_SWEEPS, pool=pool)
+        ref, ref_launches = _spatial_run(fns[1], st, spec, pool, params)
+        per_kernel_run, runs = expected_launches(pool, spec, SP_INNER, n, SP_SWEEPS)
+        assert ref_launches == per_kernel_run > 0, (ref_launches, per_kernel_run)
+        res = {"N": n, "cells": list(spec.ncells), "cap": spec.cap, "n_active": spec.n_active,
+               "temperature": temp, "pool": [f"{m.action}/{m.policy}" for m in pool], "launches": {1: ref_launches}}
+        assert not bool(ref.overflow.any()), "the unsharded run overflowed a bucket"
+        for P in SP_SLABS:
+            sp_cb, lp = _spatial_run(fns[P], st, spec, pool, params)
+            assert lp == P * per_kernel_run, f"P = {P}: {lp} kernel launches, expected {P * per_kernel_run}"
+            res["launches"][P] = lp
+            same = torch.equal(ref.accepted, sp_cb.accepted) and torch.equal(ref.system.species, sp_cb.system.species)
+            pos_err = float((ref.system.position - sp_cb.system.position).abs().max())
+            if dtype == torch.float64:
+                assert same and pos_err == 0.0, f"P = {P}: the slabs differ from the unsharded run ({pos_err})"
+            else:
+                acc_diff = abs(int(ref.accepted.sum()) - int(sp_cb.accepted.sum())) / max(1, int(ref.accepted.sum()))
+                assert acc_diff <= 1e-3 and pos_err <= 1e-5, (acc_diff, pos_err)
+            res[f"P{P}"] = {"bitwise": same and pos_err == 0.0, "position_max_abs_err": pos_err,
+                            "energy_rel_diff": float(((ref.system.energy - sp_cb.system.energy).abs()
+                                                      / ref.system.energy.abs()).max())}
+        gap = float((sp_cb.system.energy - cell_energy(sp_cb.system)).abs().max()) / n
+        assert gap <= (1e-5 if dtype == torch.float32 else 1e-9), f"ledger differs from the recompute by {gap}"
+        sample_gap = sampled_energy_gap(sp_cb.system)
+        assert sample_gap <= 1e-9, f"the cell list's particle energies differ from the all-N sums by {sample_gap}"
+        res["ledger_gap_per_particle"] = gap
+        res["sampled_particle_energy_gap"] = sample_gap
+        res["acceptance"] = move_acceptance(sp_cb)
+        assert all(0.0 < a < 1.0 for a in res["acceptance"]), res["acceptance"]
+        if name != "f64_swap":
+            rate = {}
+            for P, fn in fns.items():
+                cb = CB.init_cb_state(st, spec, seed=1, n_moves=len(pool))
+                cb = fn(cb, params)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SP_TIMED):
+                    cb = fn(cb, params)
+                torch.cuda.synchronize()
+                rate[P] = SP_SWEEPS * SP_TIMED / (time.perf_counter() - t0)
+            res["sweeps_per_s"] = rate
+            prof = profile_block(lambda: fns[SP_SLABS[-1]](cb, params))
+            res[f"profiled_call_P{SP_SLABS[-1]}"] = prof
+            res["halo_device_ms_per_call"] = prof["ranges_ms"].get(SP.HALO_RANGE, 0.0)
+            res["profiled_call_P1"] = profile_block(lambda: fns[1](cb, params))
+        if name == "f64":
+            launches_main = res["launches"]
+        out[name] = res
+    # the kernel against its plain version at a P = 2 slab's shapes
+    st, spec = spatial_system(device, torch.float64)
+    table64 = T.KobAndersen(torch.float64, device)
+    args = substep_inputs(st, table64, spec, SP_INNER, SP_SIGMA)
+    A_l = spec.n_active // SP_SLABS[0]
+    pos, sp, up, dl, thr, lo, hi, tab = args
+    args = (pos[:, :, :A_l].contiguous(), sp[:, :A_l].contiguous(), up[..., :A_l].contiguous(),
+            dl[..., :A_l].contiguous(), thr[..., :A_l].contiguous(), lo[:, :A_l].contiguous(),
+            hi[:, :A_l].contiguous(), tab)
+    cb_cuda.disp_substep.launches = 0
+    kv = compare(args, T.kinds_present(table64))
+    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    shapes = _shapes(args)
+    emit({"phase": "library_spatial", "sigma": SP_SIGMA, "inner": SP_INNER, "sweeps_per_call": SP_SWEEPS,
+          "slabs": list(SP_SLABS), "mesh": "device list repeating cuda:0", **out})
+    emit({"phase": "kernel_vs_plain", "path": "library_spatial", "shapes": shapes, "f64": kv})
+    return launches_main, kv, shapes
+
+
 def phase_launch_plan(paths):
     """The launcher's cells (warps) per block and dynamic shared memory per
     block at each path's shapes."""
@@ -1673,7 +2074,7 @@ def main() -> int:
     name, smi = timed(phase_device)
     timed(phase_build)
     kv, lib_shapes = timed(phase_kernel_vs_plain, device)
-    launches = timed(phase_library, device)
+    launches, lib_cb, lib_profile = timed(phase_library, device)
     sim, cli_launches = timed(phase_cli, device)
     kc, cli_shapes = timed(phase_cli_kernel_vs_plain, sim)
     swap_launches, ks, swap_shapes = timed(phase_cli_swap, device)
@@ -1688,6 +2089,10 @@ def main() -> int:
     pgmc_launches, kp, pgmc_shapes = timed(phase_library_pgmc, device)
     timed(phase_library_pgmc_sequential, device)
     timed(phase_checkpoint, device)
+    timed(phase_analysis, device, lib_cb)
+    del lib_cb
+    trim_launches, ktr, trim_shapes = timed(phase_library_trim, device, kv, lib_profile)
+    spatial_launches, ksp, spatial_shapes = timed(phase_library_spatial, device)
     phase_launch_plan([
         ("library", torch.float32, lib_shapes),
         ("library", torch.float64, lib_shapes),
@@ -1696,6 +2101,9 @@ def main() -> int:
         ("library_energy_bias", torch.float64, bias_shapes),
         ("cli_tempering", torch.float64, temper_shapes),
         ("library_pgmc", torch.float64, pgmc_shapes),
+        ("library_trim", torch.float32, trim_shapes),
+        ("library_trim", torch.float64, trim_shapes),
+        ("library_spatial", torch.float64, spatial_shapes),
     ])
     emit({"phase": "wall_seconds", **wall, "total": sum(wall.values())})
     f32 = kv["f32"]
@@ -1722,6 +2130,9 @@ def main() -> int:
         "library_energy_bias_f64": {"launches": bias_launches, **{k: kb[k] for k in keep}, "sweep": kb["sweep"]},
         "cli_tempering_f64": {"launches": temper_launches, **{k: kt[k] for k in keep}},
         "library_pgmc_f64": {"launches": pgmc_launches, **{k: kp[k] for k in keep}, "sweep": kp["sweep"]},
+        "library_trim_f32": {"launches": trim_launches, **{k: ktr["f32"][k] for k in keep}},
+        "library_trim_f64": {"launches": trim_launches, **{k: ktr["f64"][k] for k in keep}},
+        "library_spatial_f64": {"launches": spatial_launches, **{k: ksp[k] for k in keep}},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

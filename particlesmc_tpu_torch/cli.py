@@ -5,10 +5,13 @@ schema as the reference package:
 
 [system]      config / temperature (a scalar, or a ladder) / density / model
               (or [model."i-j"] blocks) / list_type / list_parameters
-              (cap, force_cells; checkerboard: inner, rebin_every)
+              (cap, force_cells; checkerboard: inner, rebin_every, trim =
+              "auto" / a lane count for the candidate compaction)
 [simulation]  steps / burn / seed / parallel_moves (false: the sequential
               kernel) / sweepstep / output_path / nsim / precision (f64
-              default, f32, mixed = f32 state + f64 ledger)
+              default, f32, mixed = f32 state + f64 ledger) /
+              spatial_devices (one system's grid in slabs over that many
+              cards) / profile_dir (a torch.profiler trace of the run)
 [[simulation.move]]    action / policy / probability / parameters
 [[simulation.output]]  algorithm / scheduler_params {linear_interval,
                        log_base} / callbacks / dependencies / fmt;
@@ -18,8 +21,7 @@ schema as the reference package:
 `--resume checkpoint.npz` continues a run from a StoreCheckpoints file
 (engine/simulation.py). PGMC (PolicyGradientEstimator) is library-only, as
 in the JAX package. The run is on the card unless `--device` names another
-device. Inputs outside the ported slice raise NotImplementedError naming the
-ROADMAP.md item that will port them.
+device.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 
 from .engine.schedule import build_schedule
 from .moves import base as MB
-from .runtime import resolve_device, unported
+from .runtime import resolve_device
 
 
 def _build_pool(move_cfgs):
@@ -107,8 +109,7 @@ def _build_outputs(output_cfgs, steps, burn):
             for k in ("target", "kappa", "sigma_max"):
                 if k in out:
                     entry[k] = float(out[k])
-        # Simulation checks the names: NotImplementedError for the reference
-        # package's other algorithms, ValueError for unknown ones
+        # Simulation checks the names: ValueError for unknown ones
         algos.append(entry)
     return algos
 
@@ -134,8 +135,6 @@ def run_params(params: Dict[str, Any], device=None, resume=None):
     device = resolve_device(device)
     system = params["system"]
     sim_cfg = params["simulation"]
-    if sim_cfg.get("profile_dir"):
-        raise unported("profile_dir", 12)
 
     precision = str(sim_cfg.get("precision", system.get("precision", "f64")))
     dtype, energy_dtype = PRECISIONS.get(precision, (torch.float32, None))
@@ -178,6 +177,7 @@ def run_params(params: Dict[str, Any], device=None, resume=None):
         path=sim_cfg.get("output_path", "./"),
         verbose=bool(sim_cfg.get("verbose", True)),
         resume=resume,
+        profile_dir=sim_cfg.get("profile_dir"),
     )
     sim.run()
     return sim

@@ -11,7 +11,10 @@ k [B, R], each row with its own `Override`, a virtual single-move edit
 applied during the evaluation in place of the reference's
 mutate-then-recompute. `particle_energy` sums over candidate ids
 [B, R, M] (-1 padded, a cell list's), `particle_energy_nogather` over all N
-particles (the dense ΔE)."""
+particles (the dense ΔE).
+
+`pressure` is the virial pressure rho T + W / (d V), W the total pair and
+bond virial (`total_virial_dense`)."""
 
 from __future__ import annotations
 
@@ -19,7 +22,13 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..models.potentials import bond_potential, pair_fields_needed, pair_potential
+from ..models.potentials import (
+    bond_potential,
+    bond_virial,
+    pair_fields_needed,
+    pair_potential,
+    pair_virial,
+)
 from ..models.tables import BOND_FIELDS, PairTable, gather_pair
 from .geometry import dist2
 
@@ -244,6 +253,51 @@ def per_particle_energies_of(position, species, box, table: PairTable, bonds=Non
 def total_energy_dense(position, species, box, table: PairTable, bonds=None, chunk: int = 256):
     """Total energy sum_i E_i / 2 per chain -> [B] (per_particle_energies)."""
     return torch.sum(per_particle_energies(position, species, box, table, bonds, chunk), dim=-1) / 2
+
+
+def particle_virial_nogather(k, position, species, box, table: PairTable, bonds=None, kinds=None):
+    """Virial W_k = Σ_j w(r_kj) [B, R] of particles k [B, R] against all N
+    particles: the non-bonded pair virial over every other particle except
+    k's bonded partners, plus the bond virial over k's bond list."""
+    B, n, _ = position.shape
+    iota = torch.arange(n, device=position.device)
+    xk = take(position, k)  # [B, R, d]
+    sk = take(species, k)
+    valid = iota != k[..., None]
+    if bonds is not None:
+        bonds_k = take(bonds, k)
+        valid = valid & ~torch.any(iota[:, None] == bonds_k[..., None, :], dim=-1)
+    r2 = dist2(position[:, None], xk[:, :, None, :], box[:, None, None, :])
+    w = pair_virial(r2, gather_pair(table, sk[..., None], species[:, None], pair_fields_needed(kinds)), kinds)
+    out = torch.sum(torch.where(valid, w, torch.zeros_like(w)), dim=-1)
+    if bonds is not None:
+        bvalid = bonds_k >= 0
+        partner = torch.clamp_min(bonds_k, 0)
+        r2b = dist2(take(position, partner), xk[..., None, :], box[:, None, None, :])
+        wb = bond_virial(r2b, gather_pair(table, sk[..., None], take(species, partner), BOND_FIELDS))
+        out = out + torch.sum(torch.where(bvalid, wb, torch.zeros_like(wb)), dim=-1)
+    return out
+
+
+def total_virial_dense(position, species, box, table: PairTable, bonds=None, chunk: int = 256, kinds=None):
+    """W = Σ_{i<j} w_ij per chain -> [B], as Σ_k W_k / 2 over chunks of
+    particles (particle_virial_nogather) within _PAIR_BUDGET elements."""
+    B, n, _ = position.shape
+    rows = max(1, min(chunk, n, _PAIR_BUDGET // max(1, B * n)))
+    iota = torch.arange(n, device=position.device)
+    per = [
+        particle_virial_nogather(iota[k0:k0 + rows].expand(B, -1), position, species, box, table, bonds, kinds)
+        for k0 in range(0, n, rows)
+    ]
+    return torch.sum(torch.cat(per, dim=1), dim=-1) / 2
+
+
+def pressure(position, species, box, table: PairTable, density, temperature, bonds=None):
+    """Virial pressure per chain P = rho T + W / (d V) -> [B]."""
+    d = position.shape[-1]
+    vol = torch.prod(box, dim=-1)
+    w = total_virial_dense(position, species, box, table, bonds)
+    return density * temperature + w / (d * vol)
 
 
 def initialize_energy(state, table: PairTable, check: bool = True, energy_dtype=None):

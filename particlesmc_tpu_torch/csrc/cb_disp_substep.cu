@@ -5,7 +5,8 @@
 // The Python wrapper, its contract and the plain PyTorch version with the same
 // arithmetic are in particlesmc_tpu_torch/moves/cb_cuda.py.
 //
-// Layout (B chains, A active cells, LP = 3^d * cap lanes; centre lanes first):
+// Layout (B chains, A active cells, LP lanes: cap centre lanes first, then the
+// neighbour lanes, 3^d * cap in all or cap + K after candidate compaction):
 //   packed_pos [B, D, A, LP]   positions, shifted frame, halos image-corrected
 //   packed_sp  [B, A, LP]      species as floats, -1 = empty lane
 //   up, thr    [B, inner, A]   pick uniforms in [0, 1); accept thresholds -T log(u)

@@ -27,6 +27,13 @@ Outputs and their directory layout:
 - PolicyGradientEstimator / PolicyGradientUpdate: PGMC (engine/pgmc.py); the
   estimator's `optimisers`, `q_batch_size` and `q_every` ride in its entry
 
+On the checkerboard, `list_parameters.trim` turns on the candidate
+compaction (moves/checkerboard.py::ColourSubsteps) and the Metropolis
+entry's `spatial_devices` > 1 cuts one system's grid into that many slabs
+(parallel/spatial.py), one per visible card (or CPU slabs on the CPU).
+`profile_dir` runs the whole run() under torch.profiler and writes its
+trace there.
+
 `resume=<checkpoint>` continues a run from a StoreCheckpoints file: state,
 counters, policy parameters and step are restored, and the outputs are
 appended to instead of truncated.
@@ -52,7 +59,6 @@ from ..moves import checkerboard as CBK
 from ..moves import kernel as K
 from ..models.tables import interaction_range
 from ..moves.base import Move, init_pool_params
-from ..runtime import unported
 from .callbacks import CALLBACK_REGISTRY
 
 FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
@@ -62,9 +68,6 @@ OUTPUTS = (
     "StoreParameters", "StoreCheckpoints", "PrintTimeSteps", "ReplicaExchange",
     "AdaptiveSigma", "PolicyGradientEstimator", "PolicyGradientUpdate",
 )
-# callbacks of the reference package that a later slice ports, with their
-# ROADMAP.md queue-1 item
-UNPORTED_CALLBACKS = {"pressure": 12, "chain_correlation": 12}
 
 
 @dataclass
@@ -108,8 +111,6 @@ def _check_outputs(outputs):
         for cb in a.callbacks:
             if not isinstance(cb, str):
                 continue
-            if cb in UNPORTED_CALLBACKS:
-                raise unported(f"the {cb} callback", UNPORTED_CALLBACKS[cb])
             if cb not in CALLBACK_REGISTRY:
                 raise ValueError(f"Unknown callback {cb!r}")
 
@@ -125,11 +126,13 @@ class Simulation:
         path: str = "./",
         verbose: bool = False,
         resume: Optional[str] = None,
+        profile_dir: Optional[str] = None,
     ):
         self.chains = chains
         self.steps = int(steps)
         self.path = path
         self.verbose = verbose
+        self.profile_dir = profile_dir  # torch.profiler trace of run()
         self._tput_mark: Optional[Tuple[float, int]] = None  # (wall, step)
         self.sweep_seconds = 0.0  # wall time of the sweeps alone, outputs excluded
         self._start_step = 0
@@ -143,8 +146,7 @@ class Simulation:
         self.seed = int(m.extra.get("seed", 0))
         self.sweepstep = int(m.extra.get("sweepstep", chains.n_particles))
         self.parallel_moves = bool(m.extra.get("parallel_moves", False))
-        if int(m.extra.get("spatial_devices", 0)) > 1:
-            raise unported("spatial_devices (one system over several devices)", 13)
+        self.spatial_devices = int(m.extra.get("spatial_devices", 0))
         self.outputs = [a for a in algos if a.name != "Metropolis"]
         _check_outputs(self.outputs)
 
@@ -230,8 +232,6 @@ class Simulation:
         st = chains.states
         n = chains.n_particles
         params = chains.list_parameters
-        if params.get("trim", False) not in (False, 0, "0", "off", "false", None):
-            raise unported("candidate compaction (list_parameters.trim)", 14)
         box0 = st.box[0].double().cpu().numpy()
         molecular = st.is_molecular
         self.max_bonds = int(st.bonds.shape[-1]) if molecular else 0
@@ -257,6 +257,46 @@ class Simulation:
         self.rebin_every = max(1, int(params.get("rebin_every", 8)))
         self.inner = int(params.get("inner", 8))
         self._blocks: Dict[int, Callable] = {}
+        self.spatial_mesh = None
+        self.trim_k = None
+        if self.spatial_devices > 1:
+            self.spatial_mesh = self._spatial_mesh(molecular)
+        else:
+            # candidate compaction: off, "auto" (auto_trim_k) or a lane count;
+            # 1 == True reads as "auto", as in the JAX package
+            trim = params.get("trim", False)
+            if trim in (False, 0, "0", "off", "false", None):
+                self.trim_k = None
+            elif trim in (True, "auto", "true"):
+                self.trim_k = CBK.auto_trim_k(cb_spec, box0, cb_rcut, n)
+            else:
+                self.trim_k = int(trim)
+        self.trim_rcut = cb_rcut
+
+    def _spatial_mesh(self, molecular: bool):
+        """The slabs of `spatial_devices`: one system, atomic, on the first
+        visible cards (CPU slabs for a CPU run), each an even slab."""
+        from ..parallel import mesh as PM
+        from ..parallel import spatial as SPK
+
+        n_dev = self.spatial_devices
+        if self.chains.n_chains != 1:
+            raise ValueError(
+                "spatial_devices shards ONE system's grid; use nsim = 1 (the "
+                "chains axis is the scale-out dimension for replicas)"
+            )
+        if molecular:
+            raise ValueError("spatial_devices supports atomic systems only")
+        device = self.chains.states.position.device
+        visible = torch.cuda.device_count() if device.type == "cuda" else n_dev
+        if visible < n_dev:
+            raise ValueError(f"spatial_devices = {n_dev} but only {visible} devices are visible")
+        if SPK.spatial_slab_width(self.cb_spec, n_dev) is None:
+            raise ValueError(
+                f"grid ncells[0] = {self.cb_spec.ncells[0]} cannot shard into even "
+                f"slabs over {n_dev} devices (needs even slabs of >= 2 cell columns)"
+            )
+        return PM.make_mesh(n_dev, device.type)
 
     def _init_sequential(self):
         """The sequential kernel, dense or with a cell list."""
@@ -302,11 +342,19 @@ class Simulation:
         """The hyper-sweep of `sweeps` sweeps per rebin, built once per size."""
         f = self._blocks.get(sweeps)
         if f is None:
-            f = CBK.build_hyper_sweep_fn(
-                self.cb_spec, self.chains.table, self.chains.n_particles,
-                self.sweepstep, inner=self.inner, sweeps=sweeps, pool=self.pool,
-                max_bonds=self.max_bonds,
-            )
+            if self.spatial_mesh is not None:
+                from ..parallel.spatial import build_spatial_hyper_sweep_fn
+
+                f = build_spatial_hyper_sweep_fn(
+                    self.cb_spec, self.chains.table, self.chains.n_particles, self.spatial_mesh,
+                    self.sweepstep, inner=self.inner, sweeps=sweeps, pool=self.pool,
+                )
+            else:
+                f = CBK.build_hyper_sweep_fn(
+                    self.cb_spec, self.chains.table, self.chains.n_particles,
+                    self.sweepstep, inner=self.inner, sweeps=sweeps, pool=self.pool,
+                    max_bonds=self.max_bonds, trim_k=self.trim_k, trim_rcut=self.trim_rcut,
+                )
             self._blocks[sweeps] = f
         return f
 
@@ -502,7 +550,21 @@ class Simulation:
         return lines
 
     def run(self):
-        """Execute `steps` sweeps, firing the scheduled outputs."""
+        """Execute `steps` sweeps, firing the scheduled outputs. With
+        `profile_dir`, the whole run executes under torch.profiler and its
+        trace (Chrome / TensorBoard format) is written into that directory."""
+        if not self.profile_dir:
+            return self._run()
+        from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+        activities = [ProfilerActivity.CPU]
+        if self.mc.system.position.is_cuda:
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.profile_dir)):
+            return self._run()
+
+    def _run(self):
         self._prepare_dirs()
         lines = self.write_summary()
         if self.verbose:

@@ -142,7 +142,8 @@ def _raise_on(lib, code, what):
 
 def launch_plan(dtype, d: int, S: int, LP: int, inner: int):
     """The launcher's choice for these shapes on the current card: (cells per
-    block, dynamic shared memory bytes of a block)."""
+    block, dynamic shared memory bytes of a block). `LP` is the lanes of a
+    cell, centre and neighbour (cap + K under disp_substep's `cap=`)."""
     lib = _library()
     cpb, smem = ctypes.c_int(), ctypes.c_longlong()
     code = lib.cb_disp_substep_plan(
@@ -152,7 +153,19 @@ def launch_plan(dtype, d: int, S: int, LP: int, inner: int):
     return cpb.value, smem.value
 
 
-def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
+def _lanes(LP: int, d: int, cap=None) -> int:
+    """The centre lanes of LP lanes: `cap` when given (LP = cap + K, K >= 0
+    neighbour lanes, as under candidate compaction), else LP / 3^d."""
+    if cap is None:
+        if LP % 3**d:
+            raise ValueError(f"{LP} lanes: without cap=, LP must be 3^d * cap")
+        return LP // 3**d
+    if not 1 <= int(cap) <= LP:
+        raise ValueError(f"cap = {cap} must lie in [1, LP = {LP}]")
+    return int(cap)
+
+
+def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table, cap=None):
     B, d, A, LP = packed_pos.shape
     inner = up.shape[1]
     S = table.shape[-1]
@@ -166,8 +179,9 @@ def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
         "hi": (hi, (d, A)),
         "table": (table, (len(PAIR_FIELDS), S, S)),
     }
-    if d not in (2, 3) or LP % 3**d:
-        raise ValueError(f"packed_pos {tuple(packed_pos.shape)}: need d in (2, 3), LP = 3^d * cap")
+    if d not in (2, 3):
+        raise ValueError(f"packed_pos {tuple(packed_pos.shape)}: need d in (2, 3)")
+    cap = _lanes(LP, d, cap)
     if packed_pos.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"disp_substep takes float32 or float64, not {packed_pos.dtype}")
     if B > 65535:
@@ -183,10 +197,10 @@ def _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
             raise ValueError(f"{name} is on {t.device}, expected {packed_pos.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return B, d, A, LP, inner, S
+    return B, d, A, LP, inner, S, cap
 
 
-def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=None):
+def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=None, cap=None):
     """Run the `inner` displacement sub-moves of one colour substep.
 
     Takes packed_pos [B, d, A, LP], packed_sp [B, A, LP], up/thr
@@ -195,14 +209,15 @@ def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=Non
     booked [B, A] and acc [B, A, inner] (int32). `kinds` is the sorted tuple
     of the potential kinds in the table (models/tables.py::kinds_present) and
     picks the kernel's variant; None reads it from `table`, a host sync per
-    call. CUDA tensors launch the kernel, CPU tensors run disp_substep_plain;
-    anything else raises."""
+    call. `cap` gives the centre lanes when the neighbour lanes are not the
+    3^d - 1 whole cells (LP = cap + K, the candidate compaction's layout);
+    without it LP = 3^d * cap. CUDA tensors launch the kernel, CPU tensors
+    run disp_substep_plain; anything else raises."""
     if packed_pos.device.type == "cpu":
-        return disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table)
+        return disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table, cap=cap)
     if packed_pos.device.type != "cuda":
         raise ValueError(f"disp_substep runs on cuda or cpu, not {packed_pos.device}")
-    B, d, A, LP, inner, S = _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table)
-    cap = LP // 3**d
+    B, d, A, LP, inner, S, cap = _check(packed_pos, packed_sp, up, dl, thr, lo, hi, table, cap)
     dt = packed_pos.dtype
     dev = packed_pos.device
     centre = torch.empty((B, d, A, cap), dtype=dt, device=dev)
@@ -227,13 +242,13 @@ def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=Non
 disp_substep.launches = 0
 
 
-def disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table):
+def disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, cap=None):
     """The same function as disp_substep in plain PyTorch: a loop over the
     `inner` sub-moves with masked reductions over [B, A, LP]."""
     B, d, A, LP = packed_pos.shape
     inner = up.shape[1]
     S = table.shape[-1]
-    cap = LP // 3**d
+    cap = _lanes(LP, d, cap)
     dt = packed_pos.dtype
     dev = packed_pos.device
     pos = packed_pos.clone()

@@ -9,7 +9,9 @@ runs `inner` sequential sub-moves against its own lanes and the 3^d - 1
 neighbour cells, which stay static for the substep. The colours cycle in a
 fixed order; the per-block shift restores ergodicity across cell boundaries.
 A block whose binning overflows a bucket is the identity (skip-on-overflow),
-which keeps the chain unbiased.
+which keeps the chain unbiased. With `trim_k` each substep first compacts
+the neighbour lanes to those within reach of their active cell
+(ColourSubsteps), and the sub-moves, the kernel's too, read only those.
 
 Moves (a static per-slot schedule realises the pool's mixture):
 - Displacement/SimpleGaussian: uniform pick in the cell, Gaussian proposal,
@@ -62,7 +64,7 @@ from ..models.potentials import (
     pair_potential,
     pair_virial,
 )
-from ..models.tables import BOND_FIELDS, PairTable, _Params, gather_pair, kinds_present
+from ..models.tables import BOND_FIELDS, PairTable, _Params, gather_pair, interaction_range, kinds_present
 from .cb_cuda import disp_substep, pack_table
 
 
@@ -393,11 +395,13 @@ def cell_bounds(spec: CBSpec, box_row, c):
     return lo.contiguous(), (lo + side[:, None]).contiguous()
 
 
-def write_back(padded, spec: CBSpec, c, centre, box, centre_sp=None):
+def write_back(padded, spec: CBSpec, c, centre, box, centre_sp=None, first_dim: int = 0):
     """Write the substep's centre positions (and species, when the pool
     changes them) into the grid and refresh one halo face per dimension of
     those planes (sequential face copies also carry the corners),
-    image-corrected. The molecular planes never change."""
+    image-corrected. The molecular planes never change. A slab of the
+    spatial backend refreshes the dimensions from `first_dim` = 1 on; its
+    dimension-0 halos come from the neighbouring slabs."""
     B = padded.shape[0]
     d = spec.d
     csl = _colour_slices(spec, c, (0,) * d)
@@ -407,7 +411,7 @@ def write_back(padded, spec: CBSpec, c, centre, box, centre_sp=None):
     if centre_sp is not None:
         padded[(slice(None), d) + csl] = centre_sp.reshape((B,) + shape)
         n_live = d + 1
-    for k in range(d):
+    for k in range(first_dim, d):
         nc_k = spec.ncells[k]
         if c[k] == 0:  # actives include grid coord 0: refresh the right halo
             src_i, dst_i, sign = 1, nc_k + 1, 1.0
@@ -865,8 +869,10 @@ class _Molecular:
 # ---------------------------------------------------------------------------
 
 
-# profiler range around each sub-move that is not the kernel's, by kind
+# profiler range around each sub-move that is not the kernel's, by kind,
+# and around the candidate compaction of a substep
 SUBMOVE_RANGE = "cb_submove."
+TRIM_RANGE = "cb_trim"
 
 
 def submove_kind(mv) -> str:
@@ -895,6 +901,353 @@ def check_pool(pool, molecular: bool):
             )
 
 
+def auto_trim_k(spec: CBSpec, box, rcut: float, n: int, nsigma: float = 7.0) -> Optional[int]:
+    """Lane capacity of the per-substep candidate compaction (`trim_k`).
+
+    A lane of the 3^d - 1 static neighbour blocks can interact with a mover,
+    which stays inside its active cell for the whole substep, only if its
+    distance to the cell's cube is <= rcut: it lies in the cube dilated by
+    rcut. The mean count there is density * (V_dilated - V_cell); `nsigma`
+    Poisson standard deviations of headroom are added and the result is
+    rounded up to a multiple of 128 lanes (the JAX package's sizing, kept
+    as it is). Returns None when compaction cannot beat the uncompacted
+    (3^d - 1) * cap lanes."""
+    box = np.asarray(box, np.float64)
+    side = box / np.asarray(spec.ncells, np.float64)
+    v_cell = float(np.prod(side))
+    d = spec.d
+    if d == 2:
+        s1, s2 = side
+        v_dil = s1 * s2 + 2.0 * rcut * (s1 + s2) + math.pi * rcut**2
+    elif d == 3:
+        s1, s2, s3 = side
+        v_dil = (
+            s1 * s2 * s3
+            + 2.0 * rcut * (s1 * s2 + s1 * s3 + s2 * s3)
+            + math.pi * rcut**2 * (s1 + s2 + s3)
+            + 4.0 / 3.0 * math.pi * rcut**3
+        )
+    else:
+        return None
+    density = n / float(np.prod(box))
+    mean = density * (v_dil - v_cell)
+    k = int(mean + nsigma * math.sqrt(max(mean, 1.0)) + 0.5)
+    k = max(128, -(-k // 128) * 128)
+    if k >= (3**d - 1) * spec.cap:
+        return None
+    return k
+
+
+@dataclasses.dataclass
+class _Context:
+    """What one hyper-sweep call's sub-moves read besides the lanes and the
+    draws: tables, per-move parameters and per-slot sigmas on the state's
+    device."""
+
+    tabs: _Tables
+    sigmas: list
+    thetas: list
+    sigma_slot: Optional[torch.Tensor]
+    neg_t: torch.Tensor
+    temperature: torch.Tensor
+    slot_iota: Optional[torch.Tensor]
+
+
+class ColourSubsteps:
+    """The static schedule of a hyper-sweep and the sub-moves of one colour
+    substep on one grid: the whole grid (build_hyper_sweep_fn) or one slab of
+    it (parallel/spatial.py).
+
+    `trim_k` turns on the per-substep candidate compaction: after the lanes
+    are extracted, the neighbour lanes within `trim_rcut` (default
+    tables.interaction_range) of their active cell's cube move to the front
+    in their original order and the first `trim_k` are kept, so that every
+    sub-move of the substep, the kernel's too, reads cap + trim_k lanes. A
+    dropped lane is beyond the cutoff of every position the mover can take
+    in its cell (and beyond any bond's reach with the interaction range), so
+    it adds nothing to any energy change; only the summation order changes.
+    A chain with more than `trim_k` lanes in range for some active cell runs
+    that substep as the identity: nothing accepted, nothing booked, one
+    `skipped` count. The in-range count depends only on particles outside
+    the colour's active cells, so it is invariant under the substep's own
+    moves and the identity keeps the chain unbiased. A `trim_k` that cannot
+    beat the (3^d - 1) * cap lanes turns the compaction off.
+    """
+
+    def __init__(self, spec: CBSpec, table: PairTable, pool, inner: int, max_bonds: int = 0,
+                 trim_k: Optional[int] = None, trim_rcut: Optional[float] = None):
+        from .base import displacement
+
+        d = spec.d
+        self.d, self.cap = d, spec.cap
+        self.inner = max(1, int(inner))
+        self.C = 2**d
+        self.table = table
+        self.pool = tuple(pool) if pool is not None else (displacement(1.0),)
+        self.max_bonds = max_bonds
+        self.molecular = max_bonds > 0
+        check_pool(self.pool, self.molecular)
+        self.n_moves = len(self.pool)
+        self.species_live = any(mv.action in ("swap", "flip") for mv in self.pool)
+        self.kinds = kinds_present(table)  # once here: it reads the table on the host
+        rows = _slot_schedule(self.pool, self.C, self.inner).tolist()
+        self.rows = rows
+        # each colour's segments, with each move's slots relative to the
+        # segment's start (for the counters)
+        self.segments = [
+            [
+                (k0, k1, on, [(m, [k - k0 for k in range(k0, k1) if rows[ci][k] == m])
+                              for m in sorted(set(rows[ci][k0:k1]))])
+                for k0, k1, on in schedule_segments(rows[ci], self.pool, kernel=not self.molecular)
+            ]
+            for ci in range(self.C)
+        ]
+        self.on_kernel = any(seg[2] for segs in self.segments for seg in segs)
+        # colours with a slot that is not the kernel's: they need each cell's
+        # occupancy for the pick
+        self.has_other = [any(not seg[2] for seg in segs) for segs in self.segments]
+        # each slot's index into the SimpleGaussian moves' sigmas; other slots
+        # take the first, since the kernel never reads their draws
+        self.gauss = [m for m, mv in enumerate(self.pool) if _is_gaussian(mv)]
+        self.sigma_idx = np.asarray([[self.gauss.index(m) if m in self.gauss else 0 for m in row] for row in rows])
+        if trim_k is not None:
+            trim_k = int(trim_k)
+            if trim_rcut is None:
+                trim_rcut = interaction_range(table)
+            self.trim_r2 = float(trim_rcut) ** 2
+            if trim_k >= (3**d - 1) * spec.cap:
+                trim_k = None  # cannot beat the uncompacted lane count
+        self.trim_k = trim_k
+
+    def check_injected(self, up, ua, dl, up2):
+        injected = [x is not None for x in (up, ua, dl)]
+        if any(injected) and not all(injected):
+            raise ValueError("inject up, ua and dl together")
+        if up2 is not None and not self.species_live:
+            raise ValueError("up2 is drawn only for pools with a swap or a flip")
+        if all(injected) and self.species_live and up2 is None:
+            raise ValueError("a pool with a swap or a flip needs up2 with up, ua and dl")
+
+    def context(self, system: SystemState, pool_params) -> _Context:
+        dt = system.position.dtype
+        dev = system.position.device
+        tabs = _Tables(self.table, self.kinds, dt, dev, self.molecular)
+        sigmas = [
+            p["sigma"].to(dev, dt) if mv.action == "displacement" else None
+            for mv, p in zip(self.pool, pool_params)
+        ]
+        thetas = [
+            (p["theta1"].to(dev, dt), p["theta2"].to(dev, dt)) if mv.policy == "energy_bias" else None
+            for mv, p in zip(self.pool, pool_params)
+        ]
+        sigma_slot = None
+        if self.on_kernel:
+            sigma_slot = torch.stack([sigmas[m] for m in self.gauss])[torch.as_tensor(self.sigma_idx, device=dev)]
+        slot_iota = torch.arange(self.cap, device=dev) if any(self.has_other) else None
+        return _Context(tabs, sigmas, thetas, sigma_slot, -system.temperature[:, None, None, None],
+                        system.temperature, slot_iota)
+
+    def round_draws(self, ctx: _Context, B: int, A: int, gen, injected, r: int):
+        """One round's draws [B, C, inner, (d,) A]: the injected ones' round
+        `r`, or fresh ones from `gen` (up, ua, dl, then up2 only for a pool
+        with a swap or a flip); with the kernel's thresholds thr = -T log u
+        and sigma-scaled steps dls."""
+        up, ua, dl, up2 = injected
+        dt, dev = ctx.temperature.dtype, ctx.temperature.device
+        if up is not None:
+            up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
+            up2_r = up2[:, r] if up2 is not None else None
+        else:
+            shape = (B, self.C, self.inner, A)
+            up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+            ua_r = torch.clamp_min(torch.rand(shape, generator=gen, dtype=dt, device=dev), torch.finfo(dt).tiny)
+            dl_r = torch.randn((B, self.C, self.inner, self.d, A), generator=gen, dtype=dt, device=dev)
+            up2_r = None
+            if self.species_live:  # second per-cell pick (swap or flip partner)
+                up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+        rnd = {"up": up_r, "dl": dl_r, "up2": up2_r, "log_ua": torch.log(ua_r)}
+        if self.on_kernel:
+            # fold sigma and the temperature into the kernel's draws: it
+            # compares ΔE with thr = -T log(u) and moves by dl * sigma
+            rnd["thr"] = ctx.neg_t * rnd["log_ua"]
+            rnd["dls"] = dl_r * ctx.sigma_slot[None, :, :, None, None]
+        return rnd
+
+    def compact(self, pos, sp, aux, lo, hi):
+        """The candidate compaction of one substep (class docstring): lanes
+        [.., cap + trim_k] (the molecular planes compacted alike), and ok [B],
+        False for a chain with more than trim_k lanes in range in some cell."""
+        cap, k = self.cap, self.trim_k
+        B, d, A, LP = pos.shape
+        dev = pos.device
+        pos_o, sp_o = pos[..., cap:], sp[..., cap:]
+        d2c = torch.zeros_like(sp_o)
+        for j in range(d):
+            x = pos_o[:, j]
+            over = torch.clamp_min(torch.maximum(lo[j][:, None] - x, x - hi[j][:, None]), 0.0)
+            d2c = d2c + over * over
+        inr = (sp_o >= 0) & (d2c <= self.trim_r2)
+        ok = ~torch.any(inr.sum(dim=-1) > k, dim=-1)
+        # a stable partition: each kept lane's rank among the in-range ones
+        rank = torch.cumsum(inr, dim=-1) - 1
+        dst = torch.where(inr & (rank < k), rank, k)
+        src = torch.full((B, A, k + 1), -1, dtype=torch.int64, device=dev)
+        src.scatter_(-1, dst, torch.arange(cap, LP, device=dev).expand(B, A, LP - cap))
+        src = src[..., :k]
+        keep = torch.cat([torch.ones((B, A, cap), dtype=torch.bool, device=dev), src >= 0], dim=-1)
+        idx = torch.cat([torch.arange(cap, device=dev).expand(B, A, cap), torch.clamp_min(src, 0)], dim=-1)
+        L = cap + k
+        pos_t = torch.gather(pos, -1, idx[:, None].expand(B, d, A, L))
+        sp_t = torch.where(keep, torch.gather(sp, -1, idx), -1.0)
+        if aux is not None:
+            npm = aux.shape[1]
+            aux = torch.where(keep[:, None], torch.gather(aux, -1, idx[:, None].expand(B, npm, A, L)), -1.0)
+        return pos_t, sp_t, aux, ok
+
+    def run(self, ctx: _Context, padded, spec: CBSpec, c, ci: int, lo, hi, rnd, energy, att, acc, write):
+        """Colour `c`'s substep on the wrap-padded grid `padded` of `spec` (a
+        slab's in the spatial backend): every slot of the colour's schedule
+        row, the kernel on each run of SimpleGaussian slots. `lo`/`hi` [d, A]
+        bound the active cells, `rnd` holds the colour's draws [B, inner, (d,)
+        A]. `write(centre, centre_sp)` writes the centre lanes back into the
+        grid; `att`/`acc` [B, n_moves] count in place. Returns the energy with
+        the booked changes and, with trim, ok [B] (None without)."""
+        cap = self.cap
+        dt = padded.dtype
+        tabs = ctx.tabs
+        pos, sp, aux = extract_colour(padded, spec, c)
+        ok_sub = None
+        log_ua_c = rnd["log_ua"]
+        if self.trim_k is not None:
+            with torch.profiler.record_function(TRIM_RANGE):
+                pos, sp, aux, ok_sub = self.compact(pos, sp, aux, lo, hi)
+            # a trim overflow: the substep is the identity for its chain
+            log_ua_c = torch.where(ok_sub[:, None, None], log_ua_c, math.inf)
+        mol = _Molecular(tabs, aux, cap, self.max_bonds) if self.molecular else None
+        if self.has_other[ci]:
+            occ = torch.sum(sp[..., :cap] >= 0, dim=-1)  # [B, A]; static in the substep
+            occupied = occ > 0
+            if ok_sub is not None:
+                occupied = occupied & ok_sub[:, None]
+            occupied_cells = occupied.sum(dim=-1)  # [B]
+        centre = None  # the kernel's last centre positions, not yet in `pos`
+        # the kernel runs' accepts, counted after the write-back: the
+        # counters' index copy waits for the device, so the host issues the
+        # write-back while the kernel still runs
+        kernel_accepts = []
+        up_c = rnd["up"]
+        lanes = {} if self.trim_k is None else {"cap": cap}  # compacted: LP = cap + trim_k
+        for k0, k1, kernel_run, moves in self.segments[ci]:
+            if centre is not None:
+                pos[..., :cap] = centre
+                centre = None
+            if kernel_run:
+                thr = rnd["thr"][:, k0:k1]
+                thr = thr.contiguous() if ok_sub is None else torch.where(ok_sub[:, None, None], thr, -math.inf)
+                centre, booked, acc_k = disp_substep(
+                    pos, sp, up_c[:, k0:k1].contiguous(), rnd["dls"][:, k0:k1].contiguous(),
+                    thr, lo, hi, tabs.packed, kinds=self.kinds, **lanes,
+                )
+                energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
+                kernel_accepts.append((moves, acc_k))
+                continue
+            k = k0
+            m = self.rows[ci][k]
+            mv = self.pool[m]
+            cpos, csp = pos[..., :cap], sp[..., :cap]
+            opos, osp = pos[..., cap:], sp[..., cap:]
+            log_ua = log_ua_c[:, k]
+            temperature = ctx.temperature
+            if mv.action != "swap":  # floor(u * occ) is uniform over [0, occ)
+                pick = ctx.slot_iota == torch.floor(up_c[:, k] * occ.to(dt)).long()[..., None]
+            with torch.profiler.record_function(SUBMOVE_RANGE + submove_kind(mv)):
+                if mv.action == "displacement" and mv.policy == "smart":
+                    new_pos, booked, accept = _disp_submove_smart(
+                        tabs, cpos, csp, opos, osp, pick, rnd["dl"][:, k], ctx.sigmas[m],
+                        lo, hi, occupied, log_ua, temperature,
+                    )
+                    pos[..., :cap] = new_pos
+                elif mv.action == "displacement":
+                    new_pos, booked, accept = mol.displacement(
+                        cpos, csp, opos, osp, pick, ctx.sigmas[m] * rnd["dl"][:, k],
+                        lo, hi, occupied, log_ua, temperature,
+                    )
+                    pos[..., :cap] = new_pos
+                elif mv.policy == "energy_bias":
+                    new_sp, booked, accept = _swap_submove_energy_bias(
+                        tabs, *mv.species, cpos, csp, opos, osp, *ctx.thetas[m],
+                        up_c[:, k], rnd["up2"][:, k], log_ua, temperature,
+                    )
+                    sp[..., :cap] = new_sp
+                elif mv.action == "swap":
+                    new_sp, booked, accept = _swap_submove_atomic(
+                        tabs, *mv.species, cpos, csp, opos, osp,
+                        up_c[:, k], rnd["up2"][:, k], log_ua, temperature,
+                    )
+                    sp[..., :cap] = new_sp
+                else:
+                    new_sp, booked, accept = mol.flip(
+                        cpos, csp, opos, osp, pick, rnd["up2"][:, k], occupied, log_ua, temperature,
+                    )
+                    sp[..., :cap] = new_sp
+            energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
+            att[:, m] += occupied_cells
+            acc[:, m] += accept.sum(dim=-1)
+        if centre is None:
+            centre = pos[..., :cap]
+        write(centre, sp[..., :cap] if self.species_live else None)
+        if kernel_accepts and not self.has_other[ci]:
+            occupied_cells = torch.sum(torch.any(sp[..., :cap] >= 0, dim=-1), dim=-1)  # [B]
+            if ok_sub is not None:
+                occupied_cells = occupied_cells * ok_sub
+        for moves, acc_k in kernel_accepts:
+            for m, rel in moves:
+                att[:, m] += occupied_cells * len(rel)
+                acc[:, m] += torch.sum(acc_k[..., rel], dim=(1, 2))
+        return energy, ok_sub
+
+
+def finish_block(cb: CBState, n: int, shift, planes, idx, slot, ovf, energy, att, acc, skp, species_live: bool):
+    """The state after one rebin block: positions (and species) unbinned
+    from the block's `planes`, the ledger `energy`, the counters `att`/`acc`
+    [B, n_moves] and `skp` [B] trim-overflow substeps (or None) added.
+    Skip-on-overflow: a chain whose shift overflowed a bucket keeps its
+    state (its block is the identity; its validity is invariant under the
+    block's own moves, so apply-if-valid-else-identity stays π-reversible),
+    and counts one skip; the substep skips count only where the block
+    applied."""
+    system = cb.system
+    d = system.dim
+    box = system.box
+    position = unbin_positions(planes, idx, n, shift, box)
+    ok = ~ovf
+    ok2 = ok[:, None]
+    ok4 = ok[:, None, None, None]
+    species = system.species
+    if species_live:
+        species = _unbin_planes(planes[:, d : d + 1], idx, n)[:, 0].to(species.dtype)
+        species = torch.where(ok2, species, system.species)
+    system = system.replace(
+        position=torch.where(ok[:, None, None], position, system.position),
+        species=species,
+        energy=torch.where(ok, energy, system.energy),
+    )
+    skipped = cb.skipped + ovf.long()
+    if skp is not None:
+        skipped = skipped + torch.where(ok, skp, torch.zeros_like(skp))
+    return cb.replace(
+        system=system,
+        shift=torch.where(ok2, shift, cb.shift),
+        planes=torch.where(ok4, planes, cb.planes),
+        idx=torch.where(ok[:, None, None], idx, cb.idx),
+        slot=torch.where(ok2, slot, cb.slot),
+        attempted=cb.attempted + torch.where(ok2, att, torch.zeros_like(att)),
+        accepted=cb.accepted + torch.where(ok2, acc, torch.zeros_like(acc)),
+        overflow=cb.overflow | ovf,
+        skipped=skipped,
+    )
+
+
 def build_hyper_sweep_fn(
     spec: CBSpec,
     table: PairTable,
@@ -904,6 +1257,8 @@ def build_hyper_sweep_fn(
     sweeps: int = 1,
     pool=None,
     max_bonds: int = 0,
+    trim_k: Optional[int] = None,
+    trim_rcut: Optional[float] = None,
 ):
     """Returns `hyper_sweep(cb, pool_params, *, shift=None, up=None,
     ua=None, dl=None, up2=None) -> CBState`: one rebin under a new grid
@@ -916,7 +1271,10 @@ def build_hyper_sweep_fn(
     `pool_params` its parameter dicts (moves.base.init_pool_params).
     `max_bonds` is the bond-list width of a molecular system (0 for atoms);
     the grid of a molecular system must then be sized on
-    tables.interaction_range.
+    tables.interaction_range. `trim_k` (size it with auto_trim_k) and
+    `trim_rcut` turn on the candidate compaction (ColourSubsteps); unlike
+    the JAX package, whose Pallas kernel packs only the untrimmed lanes, the
+    compacted lanes still go through the CUDA kernel.
 
     The randomness can be injected so that a test can give this port and the
     JAX package the same numbers: `shift` [B, d] (in units of the box),
@@ -927,213 +1285,45 @@ def build_hyper_sweep_fn(
     time: up, ua, dl, then up2 only for such a pool, so that an
     all-displacement pool's stream does not depend on it.
     """
-    from .base import displacement
-
+    plan = ColourSubsteps(spec, table, pool, inner, max_bonds, trim_k, trim_rcut)
     d = spec.d
     A = spec.n_active
-    cap = spec.cap
-    inner = max(1, int(inner))
-    sweeps = max(1, int(sweeps))
-    C = 2**d
+    C = plan.C
     cols = colours(d)
-    rounds = max(1, -(-int(sweepstep or n) // (A * inner * C)))
-    R = sweeps * rounds
-    pool = tuple(pool) if pool is not None else (displacement(1.0),)
-    molecular = max_bonds > 0
-    check_pool(pool, molecular)
-    n_moves = len(pool)
-    species_live = any(mv.action in ("swap", "flip") for mv in pool)
-    schedule = _slot_schedule(pool, C, inner)
-    kinds = kinds_present(table)  # once here: it reads the table on the host
-    rows = schedule.tolist()
-    # each colour's segments, with each move's slots relative to the
-    # segment's start (for the counters)
-    segments = [
-        [
-            (k0, k1, on, [(m, [k - k0 for k in range(k0, k1) if rows[ci][k] == m])
-                          for m in sorted(set(rows[ci][k0:k1]))])
-            for k0, k1, on in schedule_segments(rows[ci], pool, kernel=not molecular)
-        ]
-        for ci in range(C)
-    ]
-    on_kernel = any(seg[2] for segs in segments for seg in segs)
-    # colours with a slot that is not the kernel's: they need each cell's
-    # occupancy for the pick
-    has_other = [any(not seg[2] for seg in segs) for segs in segments]
-    # each slot's index into the SimpleGaussian moves' sigmas; other slots
-    # take the first, since the kernel never reads their draws
-    gauss = [m for m, mv in enumerate(pool) if _is_gaussian(mv)]
-    sigma_idx = np.asarray([[gauss.index(m) if m in gauss else 0 for m in row] for row in rows])
+    rounds = max(1, -(-int(sweepstep or n) // (A * plan.inner * C)))
+    R = max(1, int(sweeps)) * rounds
 
     def hyper_sweep(cb: CBState, pool_params, *, shift=None, up=None, ua=None, dl=None, up2=None):
         system = cb.system
         B = system.n_chains
         dt = system.position.dtype
         dev = system.position.device
-        gen = cb.generator
         box = system.box
-        tabs = _Tables(table, kinds, dt, dev, molecular)
-        injected = [x is not None for x in (up, ua, dl)]
-        if any(injected) and not all(injected):
-            raise ValueError("inject up, ua and dl together")
-        if up2 is not None and not species_live:
-            raise ValueError("up2 is drawn only for pools with a swap or a flip")
-        if all(injected) and species_live and up2 is None:
-            raise ValueError("a pool with a swap or a flip needs up2 with up, ua and dl")
+        plan.check_injected(up, ua, dl, up2)
+        ctx = plan.context(system, pool_params)
         if shift is None:
-            shift = torch.rand((B, d), generator=gen, dtype=dt, device=dev)
+            shift = torch.rand((B, d), generator=cb.generator, dtype=dt, device=dev)
         shift = shift * box
         planes0, idx, slot, ovf = rebin(system, spec, shift)
         padded = pad_grid(planes0, spec, box)
-
-        sigmas = [
-            p["sigma"].to(dev, dt) if mv.action == "displacement" else None
-            for mv, p in zip(pool, pool_params)
-        ]
-        thetas = [
-            (p["theta1"].to(dev, dt), p["theta2"].to(dev, dt)) if mv.policy == "energy_bias" else None
-            for mv, p in zip(pool, pool_params)
-        ]
-        if on_kernel:
-            sigma_slot = torch.stack([sigmas[m] for m in gauss])[torch.as_tensor(sigma_idx, device=dev)]
-        neg_t = -system.temperature[:, None, None, None]
         bounds = [cell_bounds(spec, box[0], c) for c in cols]
-        if any(has_other):
-            slot_iota = torch.arange(cap, device=dev)
         energy = system.energy.clone()
-        att = torch.zeros((B, n_moves), dtype=torch.int64, device=dev)
-        acc = torch.zeros((B, n_moves), dtype=torch.int64, device=dev)
-
-        def count(m, occupied_cells, accepted):
-            att[:, m] += occupied_cells
-            acc[:, m] += accepted
-
+        att = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
+        acc = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
+        skp = torch.zeros(B, dtype=torch.int64, device=dev) if plan.trim_k is not None else None
         for r in range(R):
-            if up is not None:
-                up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
-                up2_r = up2[:, r] if up2 is not None else None
-            else:
-                shape = (B, C, inner, A)
-                up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
-                ua_r = torch.clamp_min(
-                    torch.rand(shape, generator=gen, dtype=dt, device=dev),
-                    torch.finfo(dt).tiny,
-                )
-                dl_r = torch.randn((B, C, inner, d, A), generator=gen, dtype=dt, device=dev)
-                up2_r = None
-                if species_live:  # second per-cell pick (swap or flip partner)
-                    up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
-            log_ua_r = torch.log(ua_r)
-            if on_kernel:
-                # fold sigma and the temperature into the kernel's draws: it
-                # compares ΔE with thr = -T log(u) and moves by dl * sigma
-                thr_r = neg_t * log_ua_r
-                dls_r = dl_r * sigma_slot[None, :, :, None, None]
+            rnd = plan.round_draws(ctx, B, A, cb.generator, (up, ua, dl, up2), r)
             for ci, c in enumerate(cols):
-                pos, sp, aux = extract_colour(padded, spec, c)
-                lo, hi = bounds[ci]
-                mol = _Molecular(tabs, aux, cap, max_bonds) if molecular else None
-                if has_other[ci]:
-                    occ = torch.sum(sp[..., :cap] >= 0, dim=-1)  # [B, A]; static in the substep
-                    occupied = occ > 0
-                    occupied_cells = occupied.sum(dim=-1)  # [B]
-                centre = None  # the kernel's last centre positions, not yet in `pos`
-                # the kernel runs' accepts, counted after the write-back: the
-                # counters' index copy waits for the device, so the host
-                # issues the write-back while the kernel still runs
-                kernel_accepts = []
-                for k0, k1, kernel_run, moves in segments[ci]:
-                    if centre is not None:
-                        pos[..., :cap] = centre
-                        centre = None
-                    if kernel_run:
-                        centre, booked, acc_k = disp_substep(
-                            pos, sp,
-                            up_r[:, ci, k0:k1].contiguous(), dls_r[:, ci, k0:k1].contiguous(),
-                            thr_r[:, ci, k0:k1].contiguous(), lo, hi, tabs.packed, kinds=kinds,
-                        )
-                        energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
-                        kernel_accepts.append((moves, acc_k))
-                        continue
-                    k = k0
-                    m = rows[ci][k]
-                    mv = pool[m]
-                    cpos, csp = pos[..., :cap], sp[..., :cap]
-                    opos, osp = pos[..., cap:], sp[..., cap:]
-                    log_ua = log_ua_r[:, ci, k]
-                    temperature = system.temperature
-                    if mv.action != "swap":  # floor(u * occ) is uniform over [0, occ)
-                        pick = slot_iota == torch.floor(up_r[:, ci, k] * occ.to(dt)).long()[..., None]
-                    with torch.profiler.record_function(SUBMOVE_RANGE + submove_kind(mv)):
-                        if mv.action == "displacement" and mv.policy == "smart":
-                            new_pos, booked, accept = _disp_submove_smart(
-                                tabs, cpos, csp, opos, osp, pick, dl_r[:, ci, k], sigmas[m],
-                                lo, hi, occupied, log_ua, temperature,
-                            )
-                            pos[..., :cap] = new_pos
-                        elif mv.action == "displacement":
-                            new_pos, booked, accept = mol.displacement(
-                                cpos, csp, opos, osp, pick, sigmas[m] * dl_r[:, ci, k],
-                                lo, hi, occupied, log_ua, temperature,
-                            )
-                            pos[..., :cap] = new_pos
-                        elif mv.policy == "energy_bias":
-                            new_sp, booked, accept = _swap_submove_energy_bias(
-                                tabs, *mv.species, cpos, csp, opos, osp, *thetas[m],
-                                up_r[:, ci, k], up2_r[:, ci, k], log_ua, temperature,
-                            )
-                            sp[..., :cap] = new_sp
-                        elif mv.action == "swap":
-                            new_sp, booked, accept = _swap_submove_atomic(
-                                tabs, *mv.species, cpos, csp, opos, osp,
-                                up_r[:, ci, k], up2_r[:, ci, k], log_ua, temperature,
-                            )
-                            sp[..., :cap] = new_sp
-                        else:
-                            new_sp, booked, accept = mol.flip(
-                                cpos, csp, opos, osp, pick, up2_r[:, ci, k], occupied, log_ua,
-                                temperature,
-                            )
-                            sp[..., :cap] = new_sp
-                    energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
-                    count(m, occupied_cells, accept.sum(dim=-1))
-                if centre is None:
-                    centre = pos[..., :cap]
-                write_back(padded, spec, c, centre, box, sp[..., :cap] if species_live else None)
-                if kernel_accepts and not has_other[ci]:
-                    occupied_cells = torch.sum(torch.any(sp[..., :cap] >= 0, dim=-1), dim=-1)  # [B]
-                for moves, acc_k in kernel_accepts:
-                    for m, rel in moves:
-                        count(m, occupied_cells * len(rel), torch.sum(acc_k[..., rel], dim=(1, 2)))
+                def write(centre, centre_sp, c=c):
+                    write_back(padded, spec, c, centre, box, centre_sp)
 
+                rnd_c = {key: v[:, ci] for key, v in rnd.items() if v is not None}
+                energy, ok_sub = plan.run(ctx, padded, spec, c, ci, *bounds[ci], rnd_c, energy, att, acc, write)
+                if ok_sub is not None:
+                    skp = skp + (~ok_sub).long()
         interior = (slice(None), slice(None)) + (slice(1, -1),) * d
         planes = padded[interior].reshape(planes0.shape)
-        position = unbin_positions(planes, idx, n, shift, box)
-        # skip-on-overflow: a block whose shift overflowed a bucket is the
-        # identity (its validity is invariant under the block's own moves,
-        # so apply-if-valid-else-identity stays π-reversible)
-        ok = ~ovf
-        ok2 = ok[:, None]
-        ok4 = ok[:, None, None, None]
-        species = system.species
-        if species_live:
-            species = _unbin_planes(planes[:, d : d + 1], idx, n)[:, 0].to(species.dtype)
-            species = torch.where(ok2, species, system.species)
-        system = system.replace(
-            position=torch.where(ok[:, None, None], position, system.position),
-            species=species,
-            energy=torch.where(ok, energy, system.energy),
-        )
-        return cb.replace(
-            system=system,
-            shift=torch.where(ok2, shift, cb.shift),
-            planes=torch.where(ok4, planes, cb.planes),
-            idx=torch.where(ok[:, None, None], idx, cb.idx),
-            slot=torch.where(ok2, slot, cb.slot),
-            attempted=cb.attempted + torch.where(ok2, att, torch.zeros_like(att)),
-            accepted=cb.accepted + torch.where(ok2, acc, torch.zeros_like(acc)),
-            overflow=cb.overflow | ovf,
-            skipped=cb.skipped + ovf.long(),
-        )
+        return finish_block(cb, n, shift, planes, idx, slot, ovf, energy, att, acc, skp, plan.species_live)
 
+    hyper_sweep.plan = plan
     return hyper_sweep

@@ -1,4 +1,4 @@
-"""Device selection and the error for inputs this port does not cover yet."""
+"""Device selection of the entry points."""
 
 from __future__ import annotations
 
@@ -18,11 +18,3 @@ def resolve_device(device=None) -> torch.device:
         )
     return torch.device("cuda")
 
-
-def unported(what: str, item: int) -> NotImplementedError:
-    """The error for an input outside the ported slice; `item` is the
-    ROADMAP.md queue-1 item that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to particlesmc_tpu_torch yet "
-        f"(ROADMAP.md queue 1 item {item}); use particlesmc_tpu"
-    )

@@ -347,3 +347,141 @@ def test_resume_bitwise_cuda(cuda, tmp_path, backend):
             CKPT.load_checkpoint_checkerboard(ckpt, a.cb_spec, device="cpu")
         else:
             CKPT.load_checkpoint(ckpt, a.config, device="cpu")
+
+
+@pytest.mark.parametrize("pool_name", sorted(POOLS))
+def test_trimmed_hyper_sweep_cuda_matches_cpu(cuda, pool_name):
+    """The trimmed checkerboard path (LP = cap + trim_k lanes) on the card
+    against the same path on the CPU, with injected draws: same counters,
+    skips and species, positions within 1e-9; the kernel launches once per
+    run of Gaussian slots of each colour, as untrimmed."""
+    n, d = 600, 2
+    pos, sp = lattice(n, d, 1.2, seed=2)
+    pool = POOLS[pool_name]
+    out, launches = {}, {}
+    for dev in (torch.device("cpu"), cuda):
+        table = TT.KobAndersen(torch.float64, dev)
+        st = initialize_energy(make_system(pos, sp, 1.2, 1.0, device=dev).repeat(2), table)
+        spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, n)
+        trim_k = 4 * spec.cap
+        hs = CB.build_hyper_sweep_fn(spec, table, n, inner=4, pool=pool, trim_k=trim_k)
+        assert hs.plan.trim_k == trim_k
+        g = np.random.default_rng(1)
+        C, A = 2**d, spec.n_active
+        R = max(1, -(-n // (A * 4 * C)))
+        draws = dict(shift=g.uniform(0, 1, (2, d)), up=g.uniform(0, 1 - 1e-7, (2, R, C, 4, A)),
+                     ua=g.uniform(1e-300, 1, (2, R, C, 4, A)), dl=g.normal(0, 1, (2, R, C, 4, d, A)))
+        if any(m.action == "swap" for m in pool):
+            draws["up2"] = g.uniform(0, 1 - 1e-7, (2, R, C, 4, A))
+        before = cb_cuda.disp_substep.launches
+        out[dev.type] = hs(CB.init_cb_state(st, spec, seed=0, n_moves=len(pool)), MB.init_pool_params(pool, device=dev),
+                           **{k: torch.tensor(v, device=dev) for k, v in draws.items()})
+        launches[dev.type] = cb_cuda.disp_substep.launches - before
+        runs = sum(seg[2] for segs in hs.plan.segments for seg in segs)
+    assert launches == {"cpu": 0, "cuda": R * runs}
+    a, b = out["cpu"], out["cuda"]
+    for f in ("attempted", "accepted", "skipped"):
+        assert torch.equal(getattr(a, f), getattr(b, f).cpu()), f
+    assert torch.equal(a.system.species, b.system.species.cpu()) and int(a.accepted.sum()) > 0
+    np.testing.assert_allclose(b.system.position.cpu().numpy(), a.system.position.numpy(), atol=1e-9)
+    np.testing.assert_allclose(b.system.energy.cpu().numpy(), a.system.energy.numpy(), rtol=1e-9)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("d,cap,K", [(3, 32, 512), (3, 4, 37), (2, 23, 100)])
+def test_kernel_with_cap_matches_plain(cuda, dtype, d, cap, K):
+    """The kernel with cap= on LP = cap + K lanes (the valid neighbour lanes
+    compacted to the front, K not a multiple of 3^d) against its plain
+    version on the same lanes and against the untrimmed plain version."""
+    table = TT.KobAndersen(dtype, cuda)
+    x = make_inputs(d, cap, 8, 2, chains=3, A=7, seed=cap)
+    pos, sp = (torch.tensor(v, dtype=dtype, device=cuda) for v in x[:2])
+    rest = [torch.tensor(v, dtype=dtype, device=cuda) for v in x[2:]] + [cb_cuda.pack_table(table, dtype)]
+    B, _, A, LP = pos.shape
+    valid = sp[..., cap:] >= 0
+    K = max(K, int(valid.sum(-1).max()))
+    # the valid lanes first, in order; the empty ones after them keep species -1
+    order = torch.sort((~valid).to(torch.uint8), dim=-1, stable=True).indices[..., :K] + cap
+    idx = torch.cat([torch.arange(cap, device=cuda).expand(B, A, cap), order], dim=-1)
+    pos_c = torch.gather(pos, -1, idx[:, None].expand(B, d, A, cap + K)).contiguous()
+    sp_c = torch.gather(sp, -1, idx).contiguous()
+    k_out = cb_cuda.disp_substep(pos_c, sp_c, *rest, kinds=TT.kinds_present(table), cap=cap)
+    p_out = cb_cuda.disp_substep_plain(pos_c, sp_c, *rest, cap=cap)
+    full = cb_cuda.disp_substep_plain(pos, sp, *rest)
+    torch.cuda.synchronize()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for ref in (p_out, full):
+        same = (k_out[2] == ref[2]).all(dim=-1)
+        assert bool(same.all()) if dtype == torch.float64 else float(same.float().mean()) >= 0.9
+        diff = (k_out[0] - ref[0]).abs().amax(dim=(1, 3))
+        assert float(torch.where(same, diff, torch.zeros_like(diff)).max()) <= tol
+    assert int(k_out[2].sum()) > 0
+
+
+def test_spatial_p2_cuda_matches_unsharded(cuda):
+    """P = 2 slabs on one card (a device list repeating cuda:0) against the
+    unsharded sweep on the card on the same generator: positions, species
+    and counters bitwise in float64; the kernel launches once per slab per
+    kernel run of each colour."""
+    from particlesmc_tpu_torch.parallel import mesh as PM
+    from particlesmc_tpu_torch.parallel import spatial as SP
+
+    from .test_torch_inputs import wide_config
+
+    pos, sp, box, rho = wide_config(seed=2)
+    table = TT.KobAndersen(torch.float64, cuda)
+    st = initialize_energy(make_system(pos, sp, rho, 5.0, box=box, device=cuda), table)
+    spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, st.n_particles)
+    pool = (MB.displacement(0.1, 0.8), MB.discrete_swap(0, 1, 0.2))
+    params = MB.init_pool_params(pool, device=cuda)
+    ref = CB.build_hyper_sweep_fn(spec, table, st.n_particles, inner=3, pool=pool)
+    spat = SP.build_spatial_hyper_sweep_fn(spec, table, st.n_particles, PM.make_mesh(device=[cuda, cuda]),
+                                           inner=3, pool=pool)
+    out, launches = [], []
+    for fn in (ref, spat):
+        before = cb_cuda.disp_substep.launches
+        out.append(fn(CB.init_cb_state(st, spec, seed=4, n_moves=2), params))
+        launches.append(cb_cuda.disp_substep.launches - before)
+    a, b = out
+    assert launches[1] == 2 * launches[0] > 0
+    assert torch.equal(a.system.position, b.system.position) and torch.equal(a.system.species, b.system.species)
+    assert torch.equal(a.accepted, b.accepted) and int(a.accepted.sum()) > 0
+    np.testing.assert_allclose(b.system.energy.cpu().numpy(), a.system.energy.cpu().numpy(), rtol=1e-12)
+
+
+def test_pressure_cuda_matches_cpu(cuda):
+    """The virial pressure on the card against the CPU, float64, on two KA
+    chains."""
+    from particlesmc_tpu_torch.core.energy import pressure
+
+    pos, sp = lattice(500, 3, 1.2, seed=3)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        st = make_system(np.stack([pos, pos * 0.999]), np.stack([sp, sp]), 1.2, [1.0, 0.7], device=dev)
+        table = TT.KobAndersen(torch.float64, dev)
+        out.append(pressure(st.position, st.species, st.box, table, st.density, st.temperature).cpu())
+    np.testing.assert_allclose(out[1].numpy(), out[0].numpy(), rtol=1e-9)
+
+
+def test_analysis_numpy_input_runs_on_the_card(cuda, monkeypatch):
+    """A numpy trajectory, as io/formats.read_trajectory gives it, goes to
+    the card by default: g(r) counts and the MSD equal the CPU's."""
+    from particlesmc_tpu_torch.analysis import structure as A
+
+    seen = []
+    to_f64 = A._f64
+
+    def spy(x, device=None):
+        out = to_f64(x, device)
+        seen.append(out.device.type)
+        return out
+
+    monkeypatch.setattr(A, "_f64", spy)
+    rng = np.random.default_rng(5)
+    frames, box = rng.uniform(0.0, 6.0, (4, 300, 3)), np.full(3, 6.0)
+    _, g_card = A.radial_distribution(frames, box, nbins=40, rmax=2.9)
+    _, g_cpu = A.radial_distribution(frames, box, nbins=40, rmax=2.9, device="cpu")
+    np.testing.assert_array_equal(g_card, g_cpu)
+    msd_card = A.mean_squared_displacement(frames, box)
+    np.testing.assert_allclose(msd_card, A.mean_squared_displacement(frames, box, device="cpu"), rtol=0, atol=1e-12)
+    assert seen == ["cuda", "cpu", "cuda", "cpu"]

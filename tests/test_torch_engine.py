@@ -20,6 +20,7 @@ from particlesmc_tpu_torch.engine.simulation import Simulation
 from particlesmc_tpu_torch.io import formats as TF
 from particlesmc_tpu_torch.io import loader as TL
 from particlesmc_tpu_torch.moves import base as TMB
+from particlesmc_tpu_torch.moves import checkerboard as CBK
 
 from .helpers import FIXTURES, load_fixture
 
@@ -172,24 +173,44 @@ def test_cli_end_to_end_matches_jax_layout(tmp_path):
 @pytest.mark.parametrize(
     "edit,item",
     [
-        (("seed = 10", 'seed = 10\nprofile_dir = "trace"'), "item 12"),
+        (("seed = 10", 'seed = 10\nprofile_dir = "TRACE_DIR"'), "item 12"),
         (("rebin_every = 4}", "rebin_every = 4, trim = \"auto\"}"), "item 14"),
         (('callbacks = ["energy", "acceptance"]', 'callbacks = ["pressure"]'), "item 12"),
-        (("rebin_every = 4}", "rebin_every = 4, trim = 8}"), "item 14"),
+        (("rebin_every = 4}", "rebin_every = 4, trim = 96}"), "item 14"),
         (('callbacks = ["energy", "acceptance"]', 'callbacks = ["chain_correlation"]'), "item 12"),
         (("seed = 10", "seed = 10\nspatial_devices = 2"), "item 13"),
     ],
 )
 def test_unported_inputs_raise(tmp_path, edit, item):
-    """Inputs of ROADMAP items 12 to 14 raise NotImplementedError naming
-    their item."""
+    """The inputs of ROADMAP items 12 to 14, which raised NotImplementedError
+    until the port covered them, run through the CLI (the final ledger equal
+    to a dense recompute), or raise the JAX package's own ValueError:
+    chain_correlation on an atomic system."""
     _write_config(tmp_path / "config.xyz")
     text = PARAMS.format(out=tmp_path / "out")
     assert edit[0] in text
     ptoml = tmp_path / "params.toml"
-    ptoml.write_text(text.replace(*edit))
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main([str(ptoml), "--device", "cpu"])
+    ptoml.write_text(text.replace(edit[0], edit[1].replace("TRACE_DIR", str(tmp_path / "trace"))))
+    if "chain_correlation" in edit[1]:
+        with pytest.raises(ValueError, match="requires a molecular system"):
+            cli.main([str(ptoml), "--device", "cpu"])
+        return
+    sim = cli.run_file(str(ptoml), device="cpu")
+    st = sim.mc.system
+    e_dense = total_energy_dense(st.position, st.species, st.box, sim.chains.table)
+    np.testing.assert_allclose(st.energy.numpy(), e_dense.numpy(), rtol=1e-9, atol=1e-9)
+    if "profile_dir" in edit[1]:
+        assert any(f.endswith(".json") for f in os.listdir(tmp_path / "trace"))
+    elif "pressure" in edit[1]:
+        p = np.loadtxt(tmp_path / "out" / "chains" / "1" / "pressure.dat")
+        assert p.shape == (3, 2) and np.isfinite(p).all()
+    elif "trim = 96" in edit[1]:
+        assert sim.trim_k == 96 and sim._block(sim.rebin_every).plan.trim_k == 96
+    elif "trim" in edit[1]:
+        n = st.n_particles
+        assert sim.trim_k == CBK.auto_trim_k(sim.cb_spec, st.box[0].numpy(), sim.chains.table.max_cutoff, n) == 128
+    else:
+        assert sim.spatial_mesh.size == 2 and int(sim.mc.accepted.sum()) > 0
 
 
 def test_cli_smart_gaussian_ledger(tmp_path):

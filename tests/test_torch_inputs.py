@@ -107,3 +107,19 @@ def trimer_melt(n_mol, density, seed):
     pos = (centres[:, None, :] + tri[None]).reshape(n, d) + rng.uniform(-0.02, 0.02, (n, d))
     bonds = [[3 * (k // 3) + o for o in range(3) if o != k % 3] for k in range(n)]
     return pos, np.tile([1, 2, 3], n_mol), np.repeat(np.arange(1, n_mol + 1), 3), bonds
+
+
+def wide_config(ncx=16, ncy=4, seed=0, rcut=2.5):
+    """tests/test_spatial.py's _wide_system recipe: a 2D box of (ncx, ncy)
+    cells at the cutoff, a jittered rectangular lattice at density 0.6, 30%
+    species 2. Returns positions, 1-based species, box and density."""
+    rng = np.random.default_rng(seed)
+    box = np.array([ncx * rcut * 1.01, ncy * rcut * 1.01])
+    density = 0.6
+    n = int(density * box[0] * box[1])
+    ny = max(1, int(np.sqrt(n / (box[0] / box[1]))))
+    nx = int(np.ceil(n / ny))
+    xs, ys = np.meshgrid((np.arange(nx) + 0.5) * box[0] / nx, (np.arange(ny) + 0.5) * box[1] / ny, indexing="ij")
+    pos = np.stack([xs.reshape(-1), ys.reshape(-1)], -1)[:n] + rng.uniform(-0.05, 0.05, (n, 2))
+    species = (rng.random(n) < 0.3).astype(np.int64) + 1
+    return pos, species, box, density

@@ -21,6 +21,8 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "chip_ab.py")
+    yield os.path.join(ROOT, "tests", "test_torch_spatial_gloo.py")
+    yield os.path.join(ROOT, "tests", "test_torch_inputs.py")
 
 
 def _forbidden(name):
@@ -44,6 +46,24 @@ def test_import_loads_no_jax():
     n_modules, bad = out.stdout.strip().split(" ", 1)
     assert int(n_modules) >= 15
     assert bad == "[]"
+
+
+def test_new_subpackages_import_no_jax():
+    """analysis/ and parallel/ load without JAX, and the spawned gloo ranks
+    of tests/test_torch_spatial_gloo.py import no JAX either (that test
+    checks each rank's modules)."""
+    code = (
+        "import sys\n"
+        "import particlesmc_tpu_torch.analysis, particlesmc_tpu_torch.parallel.mesh\n"
+        "import particlesmc_tpu_torch.parallel.spatial\n"
+        "import tests.test_torch_spatial_gloo\n"
+        "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'flax', 'particlesmc_tpu'}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    for sub in ("analysis", "parallel"):
+        assert os.path.isfile(os.path.join(PKG, sub, "__init__.py"))
 
 
 def test_sources_import_no_jax():

@@ -443,11 +443,12 @@ def test_score_gradient_agrees_with_pathwise_derivative():
 
 
 def test_unported_pgmc_and_checkpoint_outputs_are_gone():
-    """The engine accepts every output of the JAX package's engine but the
-    callbacks of ROADMAP item 12."""
+    """The engine accepts every output and every callback of the JAX
+    package's engine."""
+    from particlesmc_tpu.engine.callbacks import CALLBACK_REGISTRY as J_CALLBACKS
     from particlesmc_tpu_torch.engine import simulation as S
 
     for name in ("PolicyGradientEstimator", "PolicyGradientUpdate", "StoreParameters", "StoreCheckpoints"):
         assert name in S.OUTPUTS
-    assert set(S.UNPORTED_CALLBACKS) == {"pressure", "chain_correlation"}
-    assert not hasattr(S, "UNPORTED_OUTPUTS")
+    assert set(S.CALLBACK_REGISTRY) == set(J_CALLBACKS)
+    assert not hasattr(S, "UNPORTED_CALLBACKS") and not hasattr(S, "UNPORTED_OUTPUTS")
