@@ -7,13 +7,17 @@ own.
 Each run imports that checkout's chip_smoke.py and particlesmc_tpu_torch,
 builds its kernel and calls its `phase_library` (N = 10,000 KA-LJ, 256
 chains, mixed precision: one warm-up block, three timed blocks and one
-profiled block). Prints each run's library line tagged with its checkout,
-then one summary line of block times, sweeps/s and device launches per
-traced block for each checkout. Needs CUDA; exits non-zero if a run fails.
+profiled block). Prints each run's library line tagged with its checkout
+and a digest of its final state (positions, species, ledgers and counters),
+then one summary line of block times, sweeps/s, device launches and stream
+synchronisations per traced block and the digests for each checkout, and
+whether every run ended in the same state. Needs CUDA; exits non-zero if a
+run fails.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -30,7 +34,11 @@ def child(tree: str) -> int:
     for mod in (chip_smoke, particlesmc_tpu_torch):
         assert os.path.abspath(mod.__file__).startswith(tree + os.sep), mod.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
-    chip_smoke.phase_library(torch.device("cuda"))
+    _, cb, _ = chip_smoke.phase_library(torch.device("cuda"))
+    h = hashlib.sha256()
+    for t in (cb.system.position, cb.system.species, cb.system.energy, cb.attempted, cb.accepted):
+        h.update(t.cpu().numpy().tobytes())
+    print(json.dumps({"digest": h.hexdigest(), "accepted": int(cb.accepted.sum())}), flush=True)
     return 0
 
 
@@ -52,6 +60,7 @@ def main(argv) -> int:
             print(out.stdout, out.stderr, file=sys.stderr)
             return out.returncode or 1
         line = next(json.loads(s) for s in out.stdout.splitlines() if s.startswith('{"phase": "library"'))
+        line.update(next(json.loads(s) for s in out.stdout.splitlines() if s.startswith('{"digest"')))
         runs[tree].append(line)
         print(json.dumps({"tree": tree, **line}), flush=True)
     print(json.dumps({"summary": {
@@ -61,8 +70,10 @@ def main(argv) -> int:
             "launches_per_block": [r["launches_per_block"] for r in rs],
             "device_launches_per_traced_block": [r["profiled_block"]["device_launches"] for r in rs],
             "device_busy_ms": [r["profiled_block"]["device_busy_ms"] for r in rs],
+            "stream_syncs_per_traced_block": [r["profiled_block"]["stream_syncs"] for r in rs],
+            "digest": [r["digest"] for r in rs],
         } for t, rs in runs.items()
-    }}), flush=True)
+    }, "same_state": len({r["digest"] for rs in runs.values() for r in rs}) == 1}), flush=True)
     return 0
 
 

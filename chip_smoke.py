@@ -70,6 +70,17 @@ Then the observables and the last checkerboard paths:
   slabs on the card against the unsharded run (bitwise in float64), with a
   DoubleUniform swap pool too, sweeps/s at P = 1, 2, 4, the halo exchange's
   device time, and the kernel against its plain version at a slab's shapes.
+Then the engine's chain shards (Simulation's devices=, here a list
+repeating the card):
+- library_chains: the main path through Simulation on P = 1, 2, 4 chain
+  shards (256 / P chains each): the end state at P = 2, 4 equal to P = 1
+  after one block, sweeps/s, block time, kernel launches (128 * P per
+  block), a traced block per P (stream synchronisations, device launches,
+  the random draws' device time), the kernel against its plain version at
+  a shard's B = 128; then large-2d-dense (64 chains), examples/movie on
+  the ladder through run_file (a swap across the shard boundary),
+  library_pgmc's estimate and a checkpoint written at P = 2 and resumed at
+  P = 1, each on 2 shards against 1.
 It then prints the launcher's cells per block and shared memory at each
 kernel path's shapes. Every phase prints one JSON line, and a `wall_seconds`
 line gives each phase's wall time; any failure raises and the exit code is
@@ -415,8 +426,9 @@ def profile_block(run_block):
     sub-moves' that are not the kernel's (by their profiler range, per
     kind), the rest of the PyTorch glue's (which includes the candidate
     compaction's and the halo exchange's ranges, also given alone as
-    `ranges_ms`), and the device's idle share of the block's span; and the
-    host's stream synchronisations in it."""
+    `ranges_ms`), and the device's idle share of the block's span; the
+    random draws' device time (PyTorch's distribution kernels, part of the
+    glue); and the host's stream synchronisations in it."""
     from torch.profiler import ProfilerActivity, profile
 
     from particlesmc_tpu_torch.moves.checkerboard import SUBMOVE_RANGE
@@ -454,6 +466,7 @@ def profile_block(run_block):
         "submove_ms": submoves, "submove_calls": ranges, "submove_share": sub / span,
         "glue_ms": busy - kernel - sub, "glue_share": (busy - kernel - sub) / span,
         "device_launches": len(evs), "stream_syncs": syncs, "top_glue": [[k[:80], v] for v, k in top[:5]],
+        "draws_ms": sum(v for k, v in by_name.items() if "distribution_" in k),
         "ranges_ms": other_ranges,
     }
 
@@ -1078,10 +1091,10 @@ def scenario_config(n, d, density, fractions, seed=42):
     return pos, species
 
 
-def sequential_sim(device, name, chains, pool, tmp, dtype=torch.float32):
+def sequential_sim(device, name, chains, pool, tmp, dtype=torch.float32, devices=None):
     """A Simulation on the sequential kernel for one scenario (the engine's
     dense or force_cells cell-list choice), its chains `chains` copies of
-    the scenario's start."""
+    the scenario's start; `devices` lists the chain shards' devices."""
     import warnings
 
     from particlesmc_tpu_torch.core.energy import initialize_energy
@@ -1100,7 +1113,7 @@ def sequential_sim(device, name, chains, pool, tmp, dtype=torch.float32):
                     list_parameters={"force_cells": True} if cells else {}, n_chains=chains)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")  # the cell path's warning is the point here
-        sim = Simulation(bundle, [dict(algorithm="Metropolis", pool=pool, seed=42)], 1, path=tmp)
+        sim = Simulation(bundle, [dict(algorithm="Metropolis", pool=pool, seed=42)], 1, path=tmp, devices=devices)
     assert sim.neighbour_mode == ("cell" if cells else "dense"), sim.neighbour_mode
     return sim
 
@@ -1405,13 +1418,14 @@ def pgmc_pool(MB):
     )
 
 
-def pgmc_sim(device, tmp, sequential):
+def pgmc_sim(device, tmp, sequential, devices=None):
     """The PGMC run as a Simulation on `device`: the pgmc-ka2d system on the
     checkerboard backend (run-study.py's optimisers VPG(1e-3), VPG(3e-2) x 2,
     q_batch_size 10, an estimate every 10 sweeps, an update and a
     StoreParameters row every 10), or the N = 43 scenario on the sequential
     dense kernel (VPG(1e-3), BLANPG(1e-4, 1e-6) x 2, an estimate every
-    sweep, an update every 2); and its StoreParameters schedule."""
+    sweep, an update every 2); and its StoreParameters schedule. `devices`
+    lists the chain shards' devices."""
     from particlesmc_tpu_torch.core.energy import initialize_energy
     from particlesmc_tpu_torch.engine.pgmc import BLANPG, VPG
     from particlesmc_tpu_torch.engine.schedule import build_schedule
@@ -1437,7 +1451,7 @@ def pgmc_sim(device, tmp, sequential):
         dict(algorithm="StoreParameters", scheduler=sched),
     ]
     chains = Chains(states=st, table=table, list_type="dense" if sequential else "cell", n_chains=st.n_chains)
-    return Simulation(chains, algorithms, steps, path=tmp, verbose=False), sched
+    return Simulation(chains, algorithms, steps, path=tmp, verbose=False, devices=devices), sched
 
 
 def estimate_cpu_vs_card(sim, tmp, sequential):
@@ -1744,17 +1758,20 @@ def phase_analysis(device, cb):
 
 # --- the main path with the candidate compaction (list_parameters trim = "auto")
 TRIM_TIMED_BLOCKS = 3
-# device launches of the untrimmed main path's traced block: a fixed count
-# (the block issues the same launches whatever the draws), which the
-# candidate compaction's code must leave as it was
-MAIN_DEVICE_LAUNCHES = 8320
+# device launches and stream synchronisations of the untrimmed main path's
+# traced block: fixed counts (the block issues the same launches whatever
+# the draws), which the candidate compaction's code must leave as they are.
+# The syncs are the host copies of cell_bounds (two per colour) and rebin
+# (two); the counters' indices and the sigma index sit on the device
+MAIN_DEVICE_LAUNCHES, MAIN_STREAM_SYNCS = 8063, 18
 
 
 def phase_library_trim(device, kv, untrimmed_profile):
     """The main path's configuration with trim = "auto" (auto_trim_k: 512
     neighbour lanes, LP 544), after a check that the untrimmed library
     block's traced device launches (`untrimmed_profile`) are still
-    MAIN_DEVICE_LAUNCHES: a warm-up and TRIM_TIMED_BLOCKS timed blocks, a
+    MAIN_DEVICE_LAUNCHES and its syncs MAIN_STREAM_SYNCS: a warm-up and
+    TRIM_TIMED_BLOCKS timed blocks, a
     traced block, the ledger against a dense recompute; then the kernel
     against its plain version at the trimmed shapes (f64 and f32), its ms
     per launch beside the untrimmed LP 864 ones of kernel_vs_plain (`kv`).
@@ -1767,8 +1784,8 @@ def phase_library_trim(device, kv, untrimmed_profile):
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     # the untrimmed main path is unchanged (its kernel launches: phase_library)
-    untrimmed = untrimmed_profile["device_launches"]
-    assert untrimmed == MAIN_DEVICE_LAUNCHES, f"untrimmed block: {untrimmed} device launches"
+    untrimmed = untrimmed_profile["device_launches"], untrimmed_profile["stream_syncs"]
+    assert untrimmed == (MAIN_DEVICE_LAUNCHES, MAIN_STREAM_SYNCS), f"untrimmed block: {untrimmed} launches, syncs"
     pos, species = lattice_config(N)
     table = T.KobAndersen(torch.float32, device)
     st = make_system(pos, species, DENSITY, TEMPERATURE, dtype=torch.float32, device=device)
@@ -2032,6 +2049,239 @@ def phase_library_spatial(device):
     return launches_main, kv, shapes
 
 
+# --- the chain shards (engine/simulation.py devices=, parallel/mesh.py) ----
+CHAIN_SHARDS, CHAIN_TIMED_BLOCKS, CHAIN_KV_CHAINS = (1, 2, 4), 3, 128
+CHAIN_SEQ_CHAINS, CHAIN_REX_STEPS, CHAIN_CKPT_STEPS = 64, 16, 32
+# a ladder close enough for swaps to accept often, so that one crosses the
+# shard boundary within CHAIN_REX_STEPS
+CHAIN_REX_LADDER = [1.0, 1.02, 1.04, 1.06]
+# f64 paths whose per-chain reductions over N the card may tile otherwise
+# for another batch size: the largest difference over the largest value
+SHARD_RTOL = 1e-12
+
+
+def chains_sim(device, P, tmp):
+    """The main path (N = 10,000 KA-LJ, 256 chains, mixed precision, cap 32,
+    inner 48, 16 sweeps per rebin, sigma 0.06) through Simulation on P
+    chain shards of the card (a device list repeating it)."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+
+    pos, species = lattice_config(N)
+    table = T.KobAndersen(torch.float32, device)
+    st = make_system(pos, species, DENSITY, TEMPERATURE, dtype=torch.float32, device=device)
+    st = initialize_energy(st, table, energy_dtype=torch.float64).repeat(CHAINS)
+    chains = Chains(states=st, table=table, list_type="dense",
+                    list_parameters={"cap": CAP, "inner": INNER, "rebin_every": REBIN}, n_chains=CHAINS)
+    metro = dict(algorithm="Metropolis", pool=(MB.displacement(SIGMA),), seed=0, parallel_moves=True)
+    return Simulation(chains, [metro], REBIN * (2 + CHAIN_TIMED_BLOCKS), path=tmp, verbose=False,
+                      devices=[device] * P)
+
+
+def max_rel_diff(a, b):
+    """The largest difference of two tensors over the largest |b|."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
+def recorded_swaps(run):
+    """run() with every replica-exchange pass's accepted flags recorded."""
+    from particlesmc_tpu_torch.engine import tempering
+
+    exchange, swaps = tempering.replica_exchange, []
+
+    def recording(mc, parity, u=None, generator=None):
+        out = exchange(mc, parity, u, generator)
+        swaps.append(out[2].cpu())
+        return out
+
+    tempering.replica_exchange = recording
+    try:
+        return run(), swaps
+    finally:
+        tempering.replica_exchange = exchange
+
+
+def output_bytes(root):
+    """Every output file under `root` but the log and the params, as bytes."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for f in names:
+            if f not in ("simulation.log", "params.toml"):
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = fh.read()
+    return out
+
+
+def sharded_checks(device):
+    """The other paths on 2 chain shards of the card against 1: the
+    sequential large-2d-dense (64 chains, f64, one sweep: the same accepts,
+    positions and ledgers within SHARD_RTOL); examples/movie on the
+    4-rung ladder CHAIN_REX_LADDER through the CLI's run_file,
+    ReplicaExchange every step
+    (bitwise, the same output bytes, a swap across the shard boundary);
+    library_pgmc's sweeps, estimate and update at 5 chains per shard (the
+    same accepts; positions, g, F and theta within SHARD_RTOL); a
+    checkpoint of the ladder's checkerboard run written at P = 2 and
+    resumed at P = 1 (bitwise against the straight run)."""
+    from particlesmc_tpu_torch import cli
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import cb_cuda
+
+    out = {}
+    sims = []
+    for P in (1, 2):
+        with tempfile.TemporaryDirectory() as tmp:
+            sim = sequential_sim(device, "large-2d-dense", CHAIN_SEQ_CHAINS, (MB.displacement(SEQ_SIGMA),), tmp,
+                                 torch.float64, [device] * P)
+            sim._run_chunk(1)
+            sims.append(sim.mc)
+    a, b = sims
+    assert torch.equal(a.accepted, b.accepted) and int(a.accepted.sum()) > 0, "the shards accepted other moves"
+    seq = {"position": max_rel_diff(b.system.position, a.system.position),
+           "energy": max_rel_diff(b.system.energy, a.system.energy)}
+    assert max(seq.values()) <= SHARD_RTOL, seq
+    out["sequential_large_2d_dense"] = {"chains": CHAIN_SEQ_CHAINS, "shards": 2, "precision": "f64", "sweeps": 1,
+                                        "max_rel_diff": seq, "bitwise": not states_equal(a, b)}
+
+    runs = {}
+    for P in (1, 2):
+        with tempfile.TemporaryDirectory() as tmp:
+            params = movie_params(
+                tmp, CHAIN_REX_STEPS,
+                ("temperature = 1.0", f"temperature = {CHAIN_REX_LADDER}"),
+                ("linear_interval = 500", "linear_interval = 4"),
+                ("linear_interval = 1000", f"linear_interval = {CHAIN_REX_STEPS}"),
+            )
+            with open(params, "a") as f:
+                f.write('\n[[simulation.output]]\nalgorithm = "ReplicaExchange"\n'
+                        "scheduler_params = {linear_interval = 1}\n")
+            cb_cuda.disp_substep.launches = 0
+            sim, swaps = recorded_swaps(lambda: cli.run_file(params, devices=[device] * P))
+            runs[P] = (sim, swaps, cb_cuda.disp_substep.launches, output_bytes(tmp))
+    (a, _, la, fa), (b, swaps, lb, fb) = runs[1], runs[2]
+    differ = states_equal(a.mc, b.mc)
+    assert not differ and fa == fb, f"tempering on 2 shards: {differ} or the output files differ"
+    half = len(CHAIN_REX_LADDER) // 2
+    crossing = sum(bool(acc[half - 1]) for acc in swaps)
+    assert crossing > 0 and lb == 2 * la > 0, (crossing, la, lb)
+    out["cli_tempering"] = {"ladder": CHAIN_REX_LADDER, "shards": 2, "steps": CHAIN_REX_STEPS, "bitwise": True,
+                            "output_files": len(fb), "swaps_across_boundary": crossing,
+                            "rex_accepted": b._rex.accepted, "launches": [la, lb]}
+
+    pg = []
+    for P in (1, 2):
+        with tempfile.TemporaryDirectory() as tmp:
+            sim, _ = pgmc_sim(device, tmp, False, [device] * P)
+            sim._run_chunk(PGMC_EVERY)
+            sim._pgmc.estimate()
+            acc = [None if x is None else [t.clone() for t in x[:2]] for x in sim._pgmc._acc]
+            sim._pgmc.update()
+            pg.append((sim, acc))
+    (a, acc_a), (b, acc_b) = pg
+    assert len(b.shards) == 2 and b.shards[0].system.n_chains == KA2D_CHAINS // 2
+    assert torch.equal(a.mc.accepted, b.mc.accepted), "the PGMC sweeps accepted other moves on 2 shards"
+    est = {"position": max_rel_diff(b.mc.system.position, a.mc.system.position)}
+    est.update({f"{m}.{k}": max_rel_diff(y, x) for m, (xa, xb) in enumerate(zip(acc_a, acc_b)) if xa is not None
+                for k, x, y in zip("gF", xa, xb)})
+    est.update({f"theta.{m}.{k}": max_rel_diff(pb[k], pa[k])
+                for m, (pa, pb) in enumerate(zip(a.pool_params, b.pool_params)) for k in pa})
+    assert max(est.values()) <= SHARD_RTOL, est
+    out["library_pgmc"] = {"chains": KA2D_CHAINS, "shards": 2, "sweeps": PGMC_EVERY, "max_rel_diff": est,
+                           "bitwise": max(est.values()) == 0.0}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        params = movie_params(tmp, CHAIN_CKPT_STEPS, ("temperature = 1.0", f"temperature = {TEMPER_LADDER}"),
+                              ("linear_interval = 500", "linear_interval = 8"),
+                              ("linear_interval = 1000", f"linear_interval = {CHAIN_CKPT_STEPS}"))
+        with open(params, "a") as f:
+            f.write('\n[[simulation.output]]\nalgorithm = "StoreCheckpoints"\n'
+                    f"scheduler_params = {{linear_interval = {CHAIN_CKPT_STEPS // 2}}}\nhistory = true\n")
+        straight = cli.run_file(params, devices=[device] * 2)
+        resumed = cli.run_file(params, devices=[device],
+                               resume=os.path.join(tmp, f"checkpoint_{CHAIN_CKPT_STEPS // 2}.npz"))
+    differ = states_equal(straight.mc, resumed.mc)
+    assert straight.mesh is not None and resumed.mesh is None and not differ, f"resume at P = 1: {differ} differ"
+    out["checkpoint"] = {"written_at_shards": 2, "resumed_at_shards": 1, "steps": CHAIN_CKPT_STEPS,
+                         "checkpoint_at": CHAIN_CKPT_STEPS // 2, "bitwise": True}
+    return out
+
+
+def phase_library_chains(device):
+    """The main path through Simulation on P = 1, 2 and 4 chain shards of
+    the card (256 / P chains each; every shard draws the global batch's
+    shapes and keeps its rows): one warm-up block, after which the end
+    state at P = 2, 4 must equal P = 1 bitwise, three timed blocks and a
+    traced one per P; kernel launches 128 * P per block; then the kernel
+    against its plain version at a shard's B = 128, and the other paths'
+    sharded checks (sharded_checks)."""
+    from particlesmc_tpu_torch.core.energy import total_energy_dense
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import cb_cuda
+    from particlesmc_tpu_torch.moves import checkerboard as CB
+
+    res, ref, launches_total = {}, None, 0
+    for P in CHAIN_SHARDS:
+        with tempfile.TemporaryDirectory() as tmp:
+            sim = chains_sim(device, P, tmp)
+            assert (sim.mesh is None) == (P == 1) and len(sim.shards) == P
+            assert all(s.system.n_chains == CHAINS // P and s.system.position.device.type == device.type
+                       for s in sim.shards)
+            per_block, _ = expected_launches(sim.pool, sim.cb_spec, INNER, N, REBIN)
+            cb_cuda.disp_substep.launches = 0
+            sim._run_chunk(REBIN)  # the warm-up block
+            att0 = int(sim.counters()[0].sum())
+            if ref is None:
+                ref = sim.mc
+            else:
+                differ = states_equal(ref, sim.mc)
+                assert not differ, f"P = {P}: {differ} differ from P = 1 after one block"
+            t0 = time.perf_counter()
+            for _ in range(CHAIN_TIMED_BLOCKS):
+                sim._run_chunk(REBIN)  # each ends in a synchronisation
+            elapsed = time.perf_counter() - t0
+            launches = cb_cuda.disp_substep.launches
+            launches_total += launches
+            attempted = int(sim.counters()[0].sum()) - att0
+            assert launches == (1 + CHAIN_TIMED_BLOCKS) * per_block * P, (P, launches, per_block)
+            prof = profile_block(lambda: sim._run_chunk(REBIN))
+            st = sim.mc.system
+            e_dense = total_energy_dense(st.position[:2].double(), st.species[:2], st.box[:2].double(),
+                                         sim.chains.table.astype(torch.float64))
+            gap = float((st.energy[:2] - e_dense).abs().max()) / N
+            assert gap <= 1e-5 and bool(torch.isfinite(st.position).all()), f"P = {P}: ledger gap {gap}"
+            res[P] = {
+                "chains_per_shard": CHAINS // P, "sweeps_per_s": attempted / N / elapsed,
+                "block_ms": 1e3 * elapsed / CHAIN_TIMED_BLOCKS, "launches_per_block": launches // (1 + CHAIN_TIMED_BLOCKS),
+                "traced_block": {k: prof[k] for k in ("span_ms", "device_busy_ms", "idle_share", "kernel_ms",
+                                                        "glue_ms", "device_launches", "stream_syncs", "draws_ms")},
+                "ledger_gap_per_particle": gap, "acceptance": move_acceptance(sim.mc),
+                "equal_to_P1_after_one_block": True,
+            }
+            del sim
+    del ref
+    # the kernel against its plain version at a shard's shapes (B = 128)
+    st = bench_system(device)
+    st = st.replace(**{f: getattr(st, f)[:CHAIN_KV_CHAINS] for f in ("position", "species", "box", "temperature",
+                                                                     "density", "energy")})
+    table = T.KobAndersen(torch.float64, device)
+    spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, N, CAP)
+    args = tuple(t.to(torch.float32) for t in substep_inputs(st, table, spec, INNER, SIGMA))
+    kv = compare(args, T.kinds_present(table))
+    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    shapes = _shapes(args)
+    checks = sharded_checks(device)
+    emit({"phase": "library_chains", "N": N, "chains": CHAINS, "precision": "mixed", "inner": INNER,
+          "sweeps_per_rebin": REBIN, "timed_blocks": CHAIN_TIMED_BLOCKS, "mesh": "device list repeating cuda:0",
+          "shards": {str(P): r for P, r in res.items()}, "launches": launches_total, "sharded_checks": checks})
+    emit({"phase": "kernel_vs_plain", "path": "library_chains", "shapes": shapes, "f32": kv})
+    return launches_total, kv, shapes
+
+
 def phase_launch_plan(paths):
     """The launcher's cells (warps) per block and dynamic shared memory per
     block at each path's shapes."""
@@ -2093,6 +2343,7 @@ def main() -> int:
     del lib_cb
     trim_launches, ktr, trim_shapes = timed(phase_library_trim, device, kv, lib_profile)
     spatial_launches, ksp, spatial_shapes = timed(phase_library_spatial, device)
+    chains_launches, kch, chains_shapes = timed(phase_library_chains, device)
     phase_launch_plan([
         ("library", torch.float32, lib_shapes),
         ("library", torch.float64, lib_shapes),
@@ -2104,6 +2355,7 @@ def main() -> int:
         ("library_trim", torch.float32, trim_shapes),
         ("library_trim", torch.float64, trim_shapes),
         ("library_spatial", torch.float64, spatial_shapes),
+        ("library_chains", torch.float32, chains_shapes),
     ])
     emit({"phase": "wall_seconds", **wall, "total": sum(wall.values())})
     f32 = kv["f32"]
@@ -2133,6 +2385,7 @@ def main() -> int:
         "library_trim_f32": {"launches": trim_launches, **{k: ktr["f32"][k] for k in keep}},
         "library_trim_f64": {"launches": trim_launches, **{k: ktr["f64"][k] for k in keep}},
         "library_spatial_f64": {"launches": spatial_launches, **{k: ksp[k] for k in keep}},
+        "library_chains_f32": {"launches": chains_launches, **{k: kch[k] for k in keep}},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -126,9 +126,10 @@ PRECISIONS = {
 }
 
 
-def run_params(params: Dict[str, Any], device=None, resume=None):
+def run_params(params: Dict[str, Any], device=None, resume=None, devices=None):
     """Assemble and run a Simulation from a parsed TOML dict; returns it.
-    `resume` names a StoreCheckpoints file to continue from."""
+    `resume` names a StoreCheckpoints file to continue from; `devices` lists
+    the chain shards' devices (Simulation's `devices`)."""
     from .engine.simulation import Simulation
     from .io.loader import load_chains
 
@@ -178,12 +179,13 @@ def run_params(params: Dict[str, Any], device=None, resume=None):
         verbose=bool(sim_cfg.get("verbose", True)),
         resume=resume,
         profile_dir=sim_cfg.get("profile_dir"),
+        devices=devices,
     )
     sim.run()
     return sim
 
 
-def run_file(path: str, device=None, resume=None):
+def run_file(path: str, device=None, resume=None, devices=None):
     """Run the simulation a params file describes; returns the Simulation.
 
     A relative `[system] config` that does not exist under the working
@@ -195,7 +197,7 @@ def run_file(path: str, device=None, resume=None):
         beside = os.path.join(os.path.dirname(os.path.abspath(path)), cfg)
         if os.path.exists(beside):
             params["system"]["config"] = beside
-    return run_params(params, device=device, resume=resume)
+    return run_params(params, device=device, resume=resume, devices=devices)
 
 
 def main(argv=None) -> int:

@@ -9,7 +9,7 @@ padded to a static maximum degree with -1).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -169,6 +169,28 @@ def shared_box(box) -> bool:
     default tolerances, as the JAX engine tests it), so that the chains can
     share one static grid, which is built from chain 0's box."""
     return torch.allclose(box, box[:1].expand_as(box))
+
+
+class ChainBlock(NamedTuple):
+    """A shard's place in the global batch: its chains are rows [lo, hi) of
+    `total`. A sampler state of a shard carries its block, and every draw is
+    made at the global batch's shape and cut to these rows, so that a shard
+    draws for its chains what the unsharded run draws for them and the
+    shards' generators stay in step (parallel/mesh.py::shard_chains)."""
+
+    lo: int
+    hi: int
+    total: int
+
+
+def draw_batch(block: Optional[ChainBlock], n_chains: int) -> int:
+    """The batch size a draw is made at: the global one on a shard."""
+    return n_chains if block is None else block.total
+
+
+def own_rows(x, block: Optional[ChainBlock]):
+    """The shard's rows of a draw (or of fed-in draws) at the global shape."""
+    return x if block is None else x[block.lo:block.hi]
 
 
 def fold_positions(state: SystemState) -> SystemState:

@@ -7,7 +7,7 @@ by a Robbins-Monro update on log sigma at its scheduled events:
     sigma <- sigma * exp(kappa_k * (acc_window - target)),   kappa_k = kappa / sqrt(k)
 
 with acc_window the move's acceptance since the previous event, summed over
-all chains, clipped to [sigma_min, sigma_max]. Adapting a proposal during
+all chains (over every chain shard: integer counts, so exactly), clipped to [sigma_min, sigma_max]. Adapting a proposal during
 sampling breaks detailed balance of the composite chain, so the controller
 is meant for the burn-in window: it freezes after its last scheduled event,
 and the 1/sqrt(k) gain keeps the bias vanishing if the schedule runs on.
@@ -59,12 +59,8 @@ class AdaptiveSigma:
         self._snap = None  # (attempted, accepted) at the previous event
         self._k = 0  # update count (diminishing gain)
 
-    def _counters(self):
-        mc = self.sim.mc
-        return mc.attempted.sum(dim=0).cpu().numpy(), mc.accepted.sum(dim=0).cpu().numpy()
-
     def step(self, t: int):
-        att, acc = self._counters()
+        att, acc = self.sim.counters()
         if self._snap is None:
             self._snap = (att, acc)
             return

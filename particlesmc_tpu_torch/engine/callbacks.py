@@ -1,6 +1,7 @@
 """Scalar observables recorded by StoreCallbacks (counterpart of
 particlesmc_tpu/engine/callbacks.py). A callback is `f(sim) -> np.ndarray[B]`,
-one value per chain."""
+one value per chain in chain order: `sim.mc` holds every chain, gathered
+from the chain shards when the run is sharded."""
 
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ def pressure(sim) -> np.ndarray:
     """Virial pressure per chain, P = rho T + W / (d V), computed on the
     chains' device in their dtype."""
     st = sim.mc.system
-    p = E.pressure(st.position, st.species, st.box, sim.chains.table, st.density, st.temperature, st.bonds)
+    table = sim.shard_tables[0]  # on the first shard's device, where sim.mc is gathered
+    p = E.pressure(st.position, st.species, st.box, table, st.density, st.temperature, st.bonds)
     return p.double().cpu().numpy()
 
 

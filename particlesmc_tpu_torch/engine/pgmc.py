@@ -31,6 +31,15 @@ synchronisation.
 The estimator draws its proposals from a torch.Generator of its own on the
 chains' device, seeded from the simulation's seed + 777 (as the JAX package
 seeds its key); io/checkpoint.py does not store it.
+
+Under chain sharding each shard evaluates its own chains with a copy of that
+generator on its device, drawing the global batch's proposals and keeping
+its rows (parallel/mesh.py). The per-chain estimates [M, P] and [M, P, P]
+are gathered in chain order on the first shard's device and averaged there,
+in the unsharded order of summation; they differ from the unsharded run's
+only where a per-chain value does (a reduction that the device tiles
+differently for another batch size), which the tests bound at 1e-12
+relative in float64.
 """
 
 from __future__ import annotations
@@ -44,8 +53,10 @@ import numpy as np
 import torch
 
 from ..core.energy import take
+from ..core.state import draw_batch, own_rows
 from ..models.tables import kinds_present
 from ..moves import kernel as K
+from ..parallel import mesh as PM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,26 +70,27 @@ class BLANPG:
     reg: float
 
 
-def _sample_displacement(theta, gen, system, q):
+def _sample_displacement(theta, gen, system, q, block=None):
     """q actions per chain: a uniform particle and δ = σ·ξ."""
     B, n, d = system.position.shape
+    Bd = draw_batch(block, B)
     dev, dt = system.position.device, system.position.dtype
-    u = torch.rand((B, q), generator=gen, dtype=torch.float64, device=dev)
+    u = own_rows(torch.rand((Bd, q), generator=gen, dtype=torch.float64, device=dev), block)
     i = torch.clamp_max(torch.floor(u * n).long(), n - 1)
     sigma = torch.as_tensor(theta["sigma"]).expand(B, q)
-    delta = sigma[..., None] * torch.randn((B, q, d), generator=gen, dtype=dt, device=dev)
+    delta = sigma[..., None] * own_rows(torch.randn((Bd, q, d), generator=gen, dtype=dt, device=dev), block)
     sp_i = take(system.species, i)
     return K.Action(i=i, j=i, pos_i=take(system.position, i) + delta, sp_i=sp_i, sp_j=sp_i, delta=delta)
 
 
-def _sample_energy_bias(config, kinds, theta, gen, system, cell, q, s1, s2):
+def _sample_energy_bias(config, kinds, theta, gen, system, cell, q, s1, s2, block=None):
     """q pairs per chain: i from species s1 with probability ∝ exp(θ1 E_i),
     j from s2 ∝ exp(θ2 E_j) (argmax of the logits plus Gumbel noise)."""
     B, n, d = system.position.shape
     dev, dt = system.position.device, system.position.dtype
     e_all = K.chain_energies(config, kinds, system, cell)[:, None]  # [B, 1, N]
     sp = system.species
-    u = torch.rand((B, q, 2, n), generator=gen, dtype=dt, device=dev)
+    u = own_rows(torch.rand((draw_batch(block, B), q, 2, n), generator=gen, dtype=dt, device=dev), block)
     g = -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(dt).tiny)))
     picks = []
     for k, (s, th) in enumerate(((s1, theta["theta1"]), (s2, theta["theta2"]))):
@@ -96,8 +108,10 @@ def _sample_energy_bias(config, kinds, theta, gen, system, cell, q, s1, s2):
 def build_surrogate_fns(config: K.KernelConfig, n: int):
     """(sample_prop, surrogate_at) for the estimator.
 
-    sample_prop(theta, m, generator, system, cell, q) draws q detached
-    actions per chain from q_θ of move m (an Action with fields [M, q]).
+    sample_prop(theta, m, generator, system, cell, q, block=None) draws q
+    detached actions per chain from q_θ of move m (an Action with fields
+    [M, q]); a chain shard (`block`) draws the global batch's and keeps its
+    rows.
     surrogate_at(prop, theta, m, system, cell) evaluates, per action, the
     surrogate L(θ) = exp(log q(a;θ) − stopgrad(log q(a;θ))) · A(a;θ) · R(a)
     at the FIXED action and returns (L, log q_fwd), both [M, *S]; θ's
@@ -109,13 +123,13 @@ def build_surrogate_fns(config: K.KernelConfig, n: int):
     rewards = [K.move_reward(mv) for mv in config.pool]
     kinds = kinds_present(config.table)
 
-    def sample_prop(theta, m, generator, system, cell, q):
+    def sample_prop(theta, m, generator, system, cell, q, block=None):
         mv = config.pool[m]
         with torch.no_grad():
             if mv.action == "displacement" and mv.policy == "gaussian":
-                return _sample_displacement(theta, generator, system, q)
+                return _sample_displacement(theta, generator, system, q, block)
             if mv.action == "swap" and mv.policy == "energy_bias":
-                return _sample_energy_bias(config, kinds, theta, generator, system, cell, q, *mv.species)
+                return _sample_energy_bias(config, kinds, theta, generator, system, cell, q, *mv.species, block)
         raise ValueError(f"move {m} ({mv.action}/{mv.policy}) has no learnable policy")
 
     def surrogate_at(prop, theta, m, system, cell):
@@ -168,39 +182,61 @@ class PGMC:
             config = sim.config
         self.config = config
         self._has_cell = config.cell_spec is not None
-        self.sample_prop, self.surrogate_at = build_surrogate_fns(config, sim.chains.n_particles)
+        # (sample_prop, surrogate_at) with the pair table on each shard's device
+        self._shard_fns = sim.per_shard_device(
+            lambda table: build_surrogate_fns(dataclasses.replace(config, table=table), sim.chains.n_particles)
+        )
+        self.sample_prop, self.surrogate_at = self._shard_fns[0]
         self._acc = [None] * len(pool)  # [g_sum [P], fisher_sum [P, P], count]
-        self.generator = torch.Generator(device=sim.mc.system.position.device)
+        self.generator = torch.Generator(device=sim.device)
         self.generator.manual_seed(sim.seed + 777)
+        # one generator per chain shard, in step with the first
+        self._generators = [self.generator] + [
+            PM.copy_generator(self.generator, s.system.position.device) for s in sim.shards[1:]
+        ]
 
     # ------------------------------------------------------------------
     def per_chain(self, m: int, prop=None):
         """One estimate of move m per chain: the gradient g [M, P] (the mean
         over the chain's q_batch_size samples) and the Fisher matrix
         F [M, P, P] (scoresᵀ scores / q_batch_size), the P parameters in
-        sorted name order. `prop` feeds in the actions (an Action [M, Q]);
-        otherwise they are drawn from the estimator's generator."""
-        mc = self.sim.mc
+        sorted name order, on the first chains' device. `prop` feeds in the
+        actions (an Action [M, Q]); otherwise they are drawn from the
+        estimator's generator. Each chain shard evaluates its own chains."""
+        sim = self.sim
+        parts = [
+            self._shard_per_chain(mc, params[m], gen, fns, m, prop)
+            for mc, params, gen, fns in zip(sim.shards, sim.shard_params, self._generators, self._shard_fns)
+        ]
+        if len(parts) == 1:
+            return parts[0]
+        dev = parts[0][0].device
+        return tuple(torch.cat([part[k].to(dev) for part in parts]) for k in range(2))
+
+    def _shard_per_chain(self, mc, p, gen, fns, m: int, prop):
+        sample_prop, surrogate_at = fns
         st = mc.system
         cell = mc.cell if self._has_cell else None
-        p = self.sim.pool_params[m]
         names = sorted(p)
         M = st.n_chains
-        Q = self.q_batch_size if prop is None else prop.i.shape[1]
         if prop is None:
-            prop = self.sample_prop(p, m, self.generator, st, cell, Q)
+            Q = self.q_batch_size
+            prop = sample_prop(p, m, gen, st, cell, Q, mc.chains)
+        else:
+            prop = K.Action(*(own_rows(x, mc.chains) for x in prop))
+            Q = prop.i.shape[1]
         with torch.enable_grad():
             theta = {k: p[k].detach().expand(M, Q).clone().requires_grad_(True) for k in names}
             leaves = [theta[k] for k in names]
-            val, lqf = self.surrogate_at(prop, theta, m, st, cell)
+            val, lqf = surrogate_at(prop, theta, m, st, cell)
             g = torch.stack(torch.autograd.grad(val.sum(), leaves, retain_graph=True), dim=-1)  # [M, Q, P]
             s = torch.stack(torch.autograd.grad(lqf.sum(), leaves), dim=-1)
         return g.mean(dim=1), s.transpose(1, 2) @ s / Q
 
     def estimate(self, props=None):
         """Accumulate one gradient estimate per learnable move, averaged
-        over the chains. `props` feeds in the actions: one Action [M, Q] per
-        pool move (None for a move without parameters)."""
+        over every chain (of every shard). `props` feeds in the actions: one
+        Action [M, Q] per pool move (None for a move without parameters)."""
         for m, learn in enumerate(self.learnable):
             if not learn:
                 continue

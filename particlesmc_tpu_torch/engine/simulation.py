@@ -2,7 +2,7 @@
 
 `Simulation(chains, algorithm_list, steps; path, verbose)` + `run()`. One
 step is one sweep of `sweepstep` attempted moves per chain. All chains
-advance together on one device, through one of two backends:
+advance together, through one of two backends:
 
 - `parallel_moves = true`: the checkerboard hyper-sweep, dispatched in
   blocks of `rebin_every` sweeps (one rebin each);
@@ -12,7 +12,19 @@ advance together on one device, through one of two backends:
   set. Per-chain boxes run on the dense path only.
 
 The sweeps between two scheduled events are issued without a host
-synchronisation; each event waits for the device once.
+synchronisation; each event waits for the devices once.
+
+Chain sharding (`devices=`, parallel/mesh.py): the chains axis is cut into
+P contiguous blocks, one per device of the list (which may repeat one card,
+or name the CPU). Without `devices`, a run whose chains are on a card shards
+over every visible card when there are several and `spatial_devices` <= 1
+(as the JAX engine does). Chains that do not divide by P warn and stay
+unsharded. Every shard draws the global batch's shape from its own
+generator, in step with the others, and keeps its rows, so a sharded run
+makes the unsharded run's moves: outputs, checkpoints, replica exchange
+(global, across shard boundaries), AdaptiveSigma and PGMC read the chains in
+global order. `sim.mc` is the gathered state of every chain (`sim.shards`
+the shards' own); `sim.mesh` is None when the run is not sharded.
 
 Outputs and their directory layout:
 - StoreCallbacks    -> <path>/chains/<k>/<name>.dat        rows "step value"
@@ -41,6 +53,7 @@ appended to instead of truncated.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 import warnings
@@ -59,6 +72,7 @@ from ..moves import checkerboard as CBK
 from ..moves import kernel as K
 from ..models.tables import interaction_range
 from ..moves.base import Move, init_pool_params
+from ..parallel import mesh as PM
 from .callbacks import CALLBACK_REGISTRY
 
 FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
@@ -127,8 +141,11 @@ class Simulation:
         verbose: bool = False,
         resume: Optional[str] = None,
         profile_dir: Optional[str] = None,
+        devices: Optional[Sequence] = None,
     ):
         self.chains = chains
+        self.mesh = None  # the chain shards' mesh (set below)
+        self._gathered = None  # sim.mc under sharding, until the shards change
         self.steps = int(steps)
         self.path = path
         self.verbose = verbose
@@ -165,6 +182,16 @@ class Simulation:
         self.pool_params = init_pool_params(self.pool, st.position.dtype, st.position.device)
         if self.parallel_moves:
             self._block(self.rebin_every)  # refuses a pool the checkerboard cannot run
+        self.mesh = self._chain_mesh(devices)
+        if self.mesh is not None:
+            self.mc = self.mc  # shards the state
+            self.pool_params = self.pool_params  # a copy on every shard's device
+        # the pair table on every shard's device
+        self.shard_tables = [chains.table] if self.mesh is None else PM.replicate(chains.table, self.mesh)
+        if not self.parallel_moves:
+            self._shard_runs = self.per_shard_device(
+                lambda table: K.build_run_fn(dataclasses.replace(self.config, table=table), chains.n_particles)
+            )
 
         self._sigma_tuner = None
         tuner = [a for a in self.outputs if a.name == "AdaptiveSigma"]
@@ -208,9 +235,101 @@ class Simulation:
             self._resume(resume)
         self._event_times = self._collect_event_times()
 
+    # ------------------------------------------------------------------
+    # The chains, whole or in shards
+    # ------------------------------------------------------------------
+    @property
+    def mc(self):
+        """The sampler state of every chain in chain order; under chain
+        sharding the shards gathered on the first shard's device (kept until
+        the shards change)."""
+        if self.mesh is None:
+            return self._shards[0]
+        if self._gathered is None:
+            self._gathered = PM.gather_chains(self._shards, self.mesh)
+        return self._gathered
+
+    @mc.setter
+    def mc(self, value):
+        self.shards = [value] if self.mesh is None else PM.shard_chains(value, self.mesh)
+
+    @property
+    def shards(self) -> list:
+        """The chain shards' states in chain order ([mc] when unsharded)."""
+        return list(self._shards)
+
+    @shards.setter
+    def shards(self, value):
+        self._shards = list(value)
+        self._gathered = None
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the first chains (the first shard's)."""
+        return self._shards[0].system.position.device
+
+    @property
+    def pool_params(self):
+        return self._pool_params
+
+    @pool_params.setter
+    def pool_params(self, value):
+        self._pool_params = tuple(value)
+        self.shard_params = (
+            [self._pool_params] if self.mesh is None else [tuple(p) for p in PM.replicate(self._pool_params, self.mesh)]
+        )
+
+    def per_shard_device(self, build) -> list:
+        """`build(table)` with the pair table on each shard's device, once
+        per distinct device, in shard order."""
+        built = {}
+        for s, table in zip(self._shards, self.shard_tables):
+            dev = s.system.position.device
+            if dev not in built:
+                built[dev] = build(table)
+        return [built[s.system.position.device] for s in self._shards]
+
+    def counters(self):
+        """(attempted, accepted) [n_moves] numpy int64, summed over every
+        chain: per shard, then over the shards (integers: exact)."""
+        att = sum(s.attempted.sum(dim=0).cpu() for s in self._shards)
+        acc = sum(s.accepted.sum(dim=0).cpu() for s in self._shards)
+        return att.numpy(), acc.numpy()
+
+    def _chain_mesh(self, devices) -> Optional[PM.Mesh]:
+        """The mesh of the chain shards (module docstring), or None."""
+        home = self.chains.states.position.device
+        if devices is None:
+            if home.type != "cuda" or self.spatial_devices > 1 or torch.cuda.device_count() <= 1:
+                return None
+            mesh = PM.make_mesh()
+        else:
+            mesh = PM.make_mesh(device=list(devices))
+            if mesh.size > 1 and self.spatial_devices > 1:
+                raise ValueError(
+                    "devices= shards the chains and spatial_devices > 1 shards one "
+                    "system's grid: give one of them"
+                )
+            other = [d for d in mesh.devices if d.type != home.type]
+            if other:
+                raise ValueError(f"the chains are on {home}: their generator cannot draw on {other[0]}")
+        P, B = mesh.size, self.chains.n_chains
+        if P <= 1:
+            return None
+        if B % P:
+            warnings.warn(
+                f"n_chains = {B} is not divisible by the {P} devices — the chain "
+                f"batch stays on ONE device ({P - 1} idle). Round n_chains up to a "
+                f"multiple of {P} (nsim in the TOML) to use them all.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return None
+        return mesh
+
     def _resume(self, path: str):
         """Restore state, counters, policy parameters and step from a
-        StoreCheckpoints file."""
+        StoreCheckpoints file (sharded again under chain sharding)."""
         st = self.chains.states
         dtype, device = st.position.dtype, st.position.device
         if self.parallel_moves:
@@ -335,7 +454,6 @@ class Simulation:
             sweepstep=self.sweepstep,
         )
         self.mc = K.init_mc_state(st, self.config, self.seed)
-        self._run_sweeps = K.build_run_fn(self.config, n)
 
     # ------------------------------------------------------------------
     def _block(self, sweeps: int) -> Callable:
@@ -359,21 +477,27 @@ class Simulation:
         return f
 
     def _sync(self):
-        """Wait for the queued work of the device that runs the chains."""
-        if self.mc.system.position.is_cuda:
-            torch.cuda.synchronize(self.mc.system.position.device)
+        """Wait for the queued work of every device that runs chains."""
+        for dev in dict.fromkeys(s.system.position.device for s in self._shards):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def _run_chunk(self, n_sweeps: int):
+        """`n_sweeps` sweeps of every chain: rebin blocks on the
+        checkerboard, sweeps on the sequential kernel (no compile per chunk
+        length here, so one call covers the gap). The shards take turns
+        block by block (sweep by sweep), so that each device has work
+        queued while the host issues the next shard's."""
         t0 = time.perf_counter()
+        shards = self._shards
         if self.parallel_moves:
             nb, rem = divmod(n_sweeps, self.rebin_every)
-            for _ in range(nb):
-                self.mc = self._block(self.rebin_every)(self.mc, self.pool_params)
-            if rem:
-                self.mc = self._block(rem)(self.mc, self.pool_params)
+            for f in [self._block(self.rebin_every)] * nb + ([self._block(rem)] if rem else []):
+                shards = [f(mc, params) for mc, params in zip(shards, self.shard_params)]
         else:
-            # no compile per chunk length here, so one call covers the gap
-            self.mc = self._run_sweeps(self.mc, self.pool_params, n_sweeps)
+            for _ in range(n_sweeps):
+                shards = [run(mc, params, 1) for run, mc, params in zip(self._shard_runs, shards, self.shard_params)]
+        self.shards = shards
         self._sync()  # every output event reads the chains anyway
         self.sweep_seconds += time.perf_counter() - t0
 
@@ -462,8 +586,7 @@ class Simulation:
                             f.write(f"{t} {vals[k]:.12g}\n")
             elif a.name == "StoreAcceptance":
                 # cumulative rates over the whole chain, summed over chains
-                att = self.mc.attempted.sum(dim=0).cpu().numpy()
-                acc = self.mc.accepted.sum(dim=0).cpu().numpy()
+                att, acc = self.counters()
                 for m in range(len(self.pool)):
                     rate = acc[m] / att[m] if att[m] > 0 else 0.0
                     with open(self._move_file(m, "acceptance.dat"), "a") as f:
@@ -542,7 +665,9 @@ class Simulation:
             f"\tChains: {self.chains.n_chains}",
             f"\tSteps: {self.steps} (sweepstep {self.sweepstep})",
             f"\tMoves: {[m.action for m in self.pool]}",
-            f"\tDevice: {st.position.device}",
+            f"\tDevice: {st.position.device}" if self.mesh is None else
+            f"\tDevice: {self.mesh.size} chain shards of {self.chains.n_chains // self.mesh.size} on "
+            f"{', '.join(str(d) for d in self.mesh.devices)}",
         ]
         os.makedirs(self.path, exist_ok=True)
         with open(os.path.join(self.path, "simulation.log"), "w") as f:
@@ -558,7 +683,7 @@ class Simulation:
         from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
         activities = [ProfilerActivity.CPU]
-        if self.mc.system.position.is_cuda:
+        if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         os.makedirs(self.profile_dir, exist_ok=True)
         with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.profile_dir)):

@@ -14,6 +14,11 @@ only onto a device of that type, so checkpoints do not cross packages or
 device types. The sequential sampler's `flip_failed` flags are stored too.
 Not stored, as in the JAX package: the generators of the policy-gradient
 estimator and of replica exchange, which restart from their seeds.
+
+Under chain sharding the engine saves the gathered state, in the same
+layout with one generator state (parallel/mesh.py::gather_chains raises if
+the shards' generators are out of step), and shards what it loads again:
+a checkpoint resumes at any shard count.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from ..core.geometry import fold_back
-from ..core.state import SystemState, shared_box
+from ..core.state import ChainBlock, SystemState, draw_batch, own_rows, shared_box
 from ..models.potentials import (
     PAIR_FIELDS,
     bond_potential,
@@ -116,6 +116,8 @@ class CBState:
     """Sampler state of B chains under the checkerboard kernel.
 
     `generator` supplies every random draw; hyper-sweeps advance it in place.
+    `chains` is a chain shard's place in the global batch (None unsharded):
+    its draws are made at the global shape and cut to its rows.
     """
 
     system: SystemState
@@ -128,6 +130,7 @@ class CBState:
     accepted: torch.Tensor  # [B, n_moves]
     overflow: torch.Tensor  # [B] sticky: some block was skipped
     skipped: torch.Tensor  # [B] count of skipped rebin blocks
+    chains: Optional[ChainBlock] = None
 
     def replace(self, **kw) -> "CBState":
         return dataclasses.replace(self, **kw)
@@ -875,6 +878,14 @@ SUBMOVE_RANGE = "cb_submove."
 TRIM_RANGE = "cb_trim"
 
 
+def _rel_slots(rel, m):
+    """(m, the move's slots in its segment, their count): a slice when the
+    slots are contiguous, so that reading the counters copies no index."""
+    if rel == list(range(rel[0], rel[-1] + 1)):
+        return m, slice(rel[0], rel[-1] + 1), len(rel)
+    return m, tuple(rel), len(rel)
+
+
 def submove_kind(mv) -> str:
     """The name of a non-kernel sub-move in the profiler: smart,
     molecular_displacement, double_uniform, energy_bias or flip."""
@@ -993,15 +1004,17 @@ class ColourSubsteps:
         rows = _slot_schedule(self.pool, self.C, self.inner).tolist()
         self.rows = rows
         # each colour's segments, with each move's slots relative to the
-        # segment's start (for the counters)
+        # segment's start (for the counters): a slice where they are
+        # contiguous, else a tuple that device_index puts on the device once
         self.segments = [
             [
-                (k0, k1, on, [(m, [k - k0 for k in range(k0, k1) if rows[ci][k] == m])
+                (k0, k1, on, [_rel_slots([k - k0 for k in range(k0, k1) if rows[ci][k] == m], m)
                               for m in sorted(set(rows[ci][k0:k1]))])
                 for k0, k1, on in schedule_segments(rows[ci], self.pool, kernel=not self.molecular)
             ]
             for ci in range(self.C)
         ]
+        self._on_device = {}  # (host index, device) -> device tensor
         self.on_kernel = any(seg[2] for segs in self.segments for seg in segs)
         # colours with a slot that is not the kernel's: they need each cell's
         # occupancy for the pick
@@ -1042,29 +1055,41 @@ class ColourSubsteps:
         ]
         sigma_slot = None
         if self.on_kernel:
-            sigma_slot = torch.stack([sigmas[m] for m in self.gauss])[torch.as_tensor(self.sigma_idx, device=dev)]
+            sigma_slot = torch.stack([sigmas[m] for m in self.gauss])[self.device_index(self.sigma_idx, dev)]
         slot_iota = torch.arange(self.cap, device=dev) if any(self.has_other) else None
         return _Context(tabs, sigmas, thetas, sigma_slot, -system.temperature[:, None, None, None],
                         system.temperature, slot_iota)
 
-    def round_draws(self, ctx: _Context, B: int, A: int, gen, injected, r: int):
+    def device_index(self, host, dev):
+        """A host index (an array or a tuple) as a device tensor, copied
+        once per device: a copy from host memory would wait for the device
+        at every call."""
+        key = (id(host), dev)
+        if key not in self._on_device:
+            self._on_device[key] = torch.as_tensor(np.asarray(host), device=dev)
+        return self._on_device[key]
+
+    def round_draws(self, ctx: _Context, B: int, A: int, gen, injected, r: int, block: Optional[ChainBlock] = None):
         """One round's draws [B, C, inner, (d,) A]: the injected ones' round
         `r`, or fresh ones from `gen` (up, ua, dl, then up2 only for a pool
         with a swap or a flip); with the kernel's thresholds thr = -T log u
-        and sigma-scaled steps dls."""
+        and sigma-scaled steps dls. A chain shard (`block`) draws the global
+        batch's shape, or is given it, and keeps its rows."""
         up, ua, dl, up2 = injected
         dt, dev = ctx.temperature.dtype, ctx.temperature.device
         if up is not None:
             up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
             up2_r = up2[:, r] if up2 is not None else None
         else:
-            shape = (B, self.C, self.inner, A)
+            shape = (draw_batch(block, B), self.C, self.inner, A)
             up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
             ua_r = torch.clamp_min(torch.rand(shape, generator=gen, dtype=dt, device=dev), torch.finfo(dt).tiny)
-            dl_r = torch.randn((B, self.C, self.inner, self.d, A), generator=gen, dtype=dt, device=dev)
+            dl_r = torch.randn(shape[:3] + (self.d, A), generator=gen, dtype=dt, device=dev)
             up2_r = None
             if self.species_live:  # second per-cell pick (swap or flip partner)
                 up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+        up_r, ua_r, dl_r = own_rows(up_r, block), own_rows(ua_r, block), own_rows(dl_r, block)
+        up2_r = None if up2_r is None else own_rows(up2_r, block)
         rnd = {"up": up_r, "dl": dl_r, "up2": up2_r, "log_ua": torch.log(ua_r)}
         if self.on_kernel:
             # fold sigma and the temperature into the kernel's draws: it
@@ -1201,9 +1226,10 @@ class ColourSubsteps:
             if ok_sub is not None:
                 occupied_cells = occupied_cells * ok_sub
         for moves, acc_k in kernel_accepts:
-            for m, rel in moves:
-                att[:, m] += occupied_cells * len(rel)
-                acc[:, m] += torch.sum(acc_k[..., rel], dim=(1, 2))
+            for m, rel, count in moves:
+                att[:, m] += occupied_cells * count
+                idx = rel if isinstance(rel, slice) else self.device_index(rel, acc_k.device)
+                acc[:, m] += torch.sum(acc_k[..., idx], dim=(1, 2))
         return energy, ok_sub
 
 
@@ -1283,7 +1309,9 @@ def build_hyper_sweep_fn(
     [B, R, C, inner, A] (the second pick), with R = sweeps * rounds and
     C = 2^d. Otherwise they are drawn from `cb.generator` one round at a
     time: up, ua, dl, then up2 only for such a pool, so that an
-    all-displacement pool's stream does not depend on it.
+    all-displacement pool's stream does not depend on it. A chain shard
+    (`cb.chains`) draws at the global batch's shape and keeps its rows;
+    injected draws are given at that shape too.
     """
     plan = ColourSubsteps(spec, table, pool, inner, max_bonds, trim_k, trim_rcut)
     d = spec.d
@@ -1302,8 +1330,8 @@ def build_hyper_sweep_fn(
         plan.check_injected(up, ua, dl, up2)
         ctx = plan.context(system, pool_params)
         if shift is None:
-            shift = torch.rand((B, d), generator=cb.generator, dtype=dt, device=dev)
-        shift = shift * box
+            shift = torch.rand((draw_batch(cb.chains, B), d), generator=cb.generator, dtype=dt, device=dev)
+        shift = own_rows(shift, cb.chains) * box
         planes0, idx, slot, ovf = rebin(system, spec, shift)
         padded = pad_grid(planes0, spec, box)
         bounds = [cell_bounds(spec, box[0], c) for c in cols]
@@ -1312,7 +1340,7 @@ def build_hyper_sweep_fn(
         acc = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
         skp = torch.zeros(B, dtype=torch.int64, device=dev) if plan.trim_k is not None else None
         for r in range(R):
-            rnd = plan.round_draws(ctx, B, A, cb.generator, (up, ua, dl, up2), r)
+            rnd = plan.round_draws(ctx, B, A, cb.generator, (up, ua, dl, up2), r, cb.chains)
             for ci, c in enumerate(cols):
                 def write(centre, centre_sp, c=c):
                     write_back(padded, spec, c, centre, box, centre_sp)

@@ -38,7 +38,10 @@ the JAX package the same numbers:
 - u [B, S]: the acceptance uniform.
 
 Otherwise they come from the state's `torch.Generator`: one sweep's small
-draws in a few launches at its start, the Gumbel noise per step.
+draws in a few launches at its start, the Gumbel noise per step. A chain
+shard (`MCState.chains`) makes every draw at the global batch's shape and
+keeps its rows, so that it draws what the unsharded run draws for its
+chains; fed-in draws are given at that shape too.
 
 MoleculeFlip resamples (m, a, b) until the two sites' species differ. The
 port draws R rounds per step and takes each chain's first valid one; R is
@@ -65,7 +68,7 @@ from ..core import neighbours as NB
 from ..core.energy import (
     Override, particle_energy, particle_energy_nogather, per_particle_energies, per_particle_energies_of, take,
 )
-from ..core.state import SystemState, shared_box
+from ..core.state import ChainBlock, SystemState, draw_batch, own_rows, shared_box
 from ..models.tables import PairTable, kinds_present
 from .base import Move
 
@@ -112,7 +115,8 @@ class Action(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class MCState:
     """Sampler state of B chains under the sequential kernel. `generator`
-    supplies every random draw; sweeps advance it in place."""
+    supplies every random draw; sweeps advance it in place. `chains` is a
+    chain shard's place in the global batch (None unsharded)."""
 
     system: SystemState
     generator: torch.Generator
@@ -121,6 +125,7 @@ class MCState:
     accepted: torch.Tensor  # [B, n_moves] int64
     flip_failed: torch.Tensor  # [B] bool, sticky: a chosen flip found no valid pair
     flip_rounds: int = 0  # MoleculeFlip candidate rounds per step (0: no flip)
+    chains: Optional[ChainBlock] = None
 
     def replace(self, **kw) -> "MCState":
         return dataclasses.replace(self, **kw)
@@ -637,21 +642,22 @@ class _Kernel:
         """One sweep's draws from the state's generator (the Gumbel noise is
         drawn per step)."""
         st = mc.system
-        B, n, d = st.position.shape
+        n, d = st.position.shape[1:]
+        B = draw_batch(mc.chains, st.n_chains)  # the global batch's
         dev, dt = st.position.device, st.position.dtype
         gen = mc.generator
 
         def uniform(*shape, dtype=torch.float64):
-            return torch.rand(shape, generator=gen, dtype=dtype, device=dev)
+            return own_rows(torch.rand(shape, generator=gen, dtype=dtype, device=dev), mc.chains)
 
         u_move = uniform(B, steps)
-        move = torch.zeros((B, steps), dtype=torch.int64, device=dev)
+        move = torch.zeros_like(u_move, dtype=torch.int64)
         for c in self.cum:
             move += (u_move >= c).long()
         out = {"move": move}
         if self.has_disp:
             out["i"] = _index(uniform(B, steps), n)
-            out["normal"] = torch.randn((B, steps, d), generator=gen, dtype=dt, device=dev)
+            out["normal"] = own_rows(torch.randn((B, steps, d), generator=gen, dtype=dt, device=dev), mc.chains)
         if self.has_uniform:
             # ranks are uniforms here, scaled by the chosen swap's
             # population in the step
@@ -666,17 +672,17 @@ class _Kernel:
         state's generator."""
         dev = mc.system.position.device
         _, ml = self.mol_layout(dev)
-        shape = (mc.system.n_chains, steps, mc.flip_rounds, 3)
-        u = torch.rand(shape, generator=mc.generator, dtype=torch.float64, device=dev)
+        shape = (draw_batch(mc.chains, mc.system.n_chains), steps, mc.flip_rounds, 3)
+        u = own_rows(torch.rand(shape, generator=mc.generator, dtype=torch.float64, device=dev), mc.chains)
         m = _index(u[..., 0], len(self.config.mol_start))
         L = ml[m]
         return torch.stack([m, _index(u[..., 1], L), _index(u[..., 2], torch.clamp_min(L - 1, 1))], dim=-1)
 
     def gumbel(self, mc: MCState):
         st = mc.system
-        B, n, _ = st.position.shape
+        B, n = draw_batch(mc.chains, st.n_chains), st.n_particles
         dt = st.position.dtype
-        u = torch.rand((B, 2, n), generator=mc.generator, dtype=dt, device=st.position.device)
+        u = own_rows(torch.rand((B, 2, n), generator=mc.generator, dtype=dt, device=st.position.device), mc.chains)
         return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(dt).tiny)))
 
     def step(self, w: _Work, pool_params, dr, counts):
@@ -734,6 +740,7 @@ class _Kernel:
                 raise ValueError(f"this pool takes draws {sorted(need)}, got {sorted(draws)}")
             if any(v.shape[1] != steps for v in draws.values()):
                 raise ValueError(f"draws must cover the sweep's {steps} steps")
+            draws = {k: own_rows(v, mc.chains) for k, v in draws.items()}
         counts = None
         if self.has_uniform:
             sp = mc.system.species

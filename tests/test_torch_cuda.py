@@ -485,3 +485,51 @@ def test_analysis_numpy_input_runs_on_the_card(cuda, monkeypatch):
     msd_card = A.mean_squared_displacement(frames, box)
     np.testing.assert_allclose(msd_card, A.mean_squared_displacement(frames, box, device="cpu"), rtol=0, atol=1e-12)
     assert seen == ["cuda", "cpu", "cuda", "cpu"]
+
+
+def _main_path_sim(cuda, tmp_path, devices, name):
+    """The main path in small (KA-LJ 3D, N = 1500, 4 chains, mixed
+    precision, cap 32, inner 8, 4 sweeps per rebin) through Simulation."""
+    from particlesmc_tpu_torch.engine.simulation import Simulation
+    from particlesmc_tpu_torch.io.loader import Chains
+
+    pos, sp = lattice(1500, 3, 1.2, seed=1)
+    table = TT.KobAndersen(torch.float32, cuda)
+    st = make_system(pos, sp, 1.2, 1.0, dtype=torch.float32, device=cuda)
+    st = initialize_energy(st, table, energy_dtype=torch.float64).repeat(4)
+    chains = Chains(states=st, table=table, list_type="dense",
+                    list_parameters={"inner": 8, "rebin_every": 4, "cap": 32}, n_chains=4)
+    return Simulation(chains, [dict(algorithm="Metropolis", pool=(MB.displacement(0.06),), seed=3,
+                                    parallel_moves=True)], 8, path=str(tmp_path / name), devices=devices)
+
+
+def test_chain_shards_cuda_match_unsharded(cuda, tmp_path):
+    """One main-path block as 2 chain shards on the card (a device list
+    repeating it) against the unsharded block: positions, ledgers and
+    counters bitwise, the kernel launched once per shard per kernel run;
+    each shard draws with a generator of its own on its own device."""
+    out, launches = [], []
+    for devices in ([cuda], [cuda, cuda]):
+        sim = _main_path_sim(cuda, tmp_path, devices, str(len(devices)))
+        assert (sim.mesh is None) == (len(devices) == 1)
+        before = cb_cuda.disp_substep.launches
+        sim._run_chunk(4)
+        launches.append(cb_cuda.disp_substep.launches - before)
+        out.append(sim)
+    ref, sh = out
+    assert launches[1] == 2 * launches[0] > 0
+    gens = [s.generator for s in sh.shards]
+    assert gens[0] is not gens[1] and all(g.device == s.system.position.device for g, s in zip(gens, sh.shards))
+    assert all(s.system.position.device.type == "cuda" for s in sh.shards)
+    a, b = ref.mc, sh.mc
+    assert int(a.accepted.sum()) > 0
+    for f in ("position", "species", "energy"):
+        assert torch.equal(getattr(a.system, f), getattr(b.system, f)), f
+    assert torch.equal(a.attempted, b.attempted) and torch.equal(a.accepted, b.accepted)
+    assert torch.equal(a.generator.get_state(), b.generator.get_state())
+
+
+def test_chain_shards_refuse_an_invisible_card(cuda, tmp_path):
+    """A devices= list that names a card beyond device_count() raises."""
+    with pytest.raises(ValueError, match="not visible"):
+        _main_path_sim(cuda, tmp_path, [cuda, f"cuda:{torch.cuda.device_count()}"], "bad")

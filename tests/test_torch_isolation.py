@@ -22,6 +22,7 @@ def _port_sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "chip_ab.py")
     yield os.path.join(ROOT, "tests", "test_torch_spatial_gloo.py")
+    yield os.path.join(ROOT, "tests", "test_torch_chain_gloo.py")
     yield os.path.join(ROOT, "tests", "test_torch_inputs.py")
 
 
@@ -50,13 +51,13 @@ def test_import_loads_no_jax():
 
 def test_new_subpackages_import_no_jax():
     """analysis/ and parallel/ load without JAX, and the spawned gloo ranks
-    of tests/test_torch_spatial_gloo.py import no JAX either (that test
-    checks each rank's modules)."""
+    of tests/test_torch_spatial_gloo.py and tests/test_torch_chain_gloo.py
+    import no JAX either (those tests check each rank's modules)."""
     code = (
         "import sys\n"
         "import particlesmc_tpu_torch.analysis, particlesmc_tpu_torch.parallel.mesh\n"
         "import particlesmc_tpu_torch.parallel.spatial\n"
-        "import tests.test_torch_spatial_gloo\n"
+        "import tests.test_torch_spatial_gloo, tests.test_torch_chain_gloo\n"
         "print(sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'flax', 'particlesmc_tpu'}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
