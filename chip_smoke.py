@@ -119,6 +119,22 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def launch_count() -> int:
+    """The hand kernel's launches so far (the port's `cb_cuda.launches`
+    counter); a phase counts the difference around its work."""
+    from particlesmc_tpu_torch import tracing
+
+    return tracing.counters().get("cb_cuda.launches", 0)
+
+
+def chunk_seconds() -> float:
+    """Host seconds of the engine's chunks so far (the port's `engine.chunk`
+    phase): the sweeps and their final wait, outputs excluded."""
+    from particlesmc_tpu_torch import tracing
+
+    return tracing.totals().get("engine.chunk", (0, 0.0))[1]
+
+
 def _time_ms(fn, runs: int, warmup: int = 1) -> float:
     """Median milliseconds of `fn()` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -399,7 +415,6 @@ def phase_kernel_vs_plain(device):
     in float64 and float32: the variant for the table's kinds, and the
     generic variant."""
     from particlesmc_tpu_torch.models import tables as T
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     st = bench_system(device)
@@ -407,15 +422,14 @@ def phase_kernel_vs_plain(device):
     spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, N, CAP)
     args64 = substep_inputs(st, table, spec, INNER, SIGMA)
     kinds = T.kinds_present(table)
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     out = {}
     for dtype in (torch.float64, torch.float32):
         key = "f64" if dtype == torch.float64 else "f32"
         args = tuple(t.to(dtype) for t in args64)
         out[key] = compare(args, kinds)
         out[key + "_generic"] = compare(args, ALL_KINDS, time_plain=False)
-    launches = cb_cuda.disp_substep.launches
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    launches = launch_count() - launches0
     emit({"phase": "kernel_vs_plain", "path": "library", "shapes": _shapes(args64),
           "launches": launches, **out})
     return out, _shapes(args64)
@@ -431,16 +445,18 @@ def profile_block(run_block):
     glue); and the host's stream synchronisations in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    from particlesmc_tpu_torch.moves.checkerboard import SUBMOVE_RANGE
+    from particlesmc_tpu_torch.moves.checkerboard import SUBMOVE_RANGE, TRIM_RANGE
+    from particlesmc_tpu_torch.parallel.spatial import HALO_RANGE
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run_block()
         torch.cuda.synchronize()
     events = prof.events()
-    # the ranges' own annotations on the device timeline are not device work
-    evs = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.name.startswith("cb_")]
+    # a span's annotation on the device timeline, if any, is not device work
+    spans = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.startswith(("engine.", "cb.", "seq.", "setup.", "spatial."))}
+    evs = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in spans]
     assert evs, "the profiler saw no device activity"
     by_name = {}
     for e in evs:
@@ -454,7 +470,7 @@ def profile_block(run_block):
             kind = e.name[len(SUBMOVE_RANGE):]
             submoves[kind] = submoves.get(kind, 0.0) + e.device_time_total / 1e3
             ranges[kind] = ranges.get(kind, 0) + 1
-        elif e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("cb_"):
+        elif e.device_type == torch.autograd.DeviceType.CPU and e.name in (TRIM_RANGE, HALO_RANGE):
             other_ranges[e.name] = other_ranges.get(e.name, 0.0) + e.device_time_total / 1e3
     sub = sum(submoves.values())
     syncs = sum(1 for e in events if e.device_type == torch.autograd.DeviceType.CPU
@@ -506,7 +522,6 @@ def phase_library(device):
     from particlesmc_tpu_torch.core.state import make_system
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     pos, species = lattice_config(N)
@@ -527,13 +542,13 @@ def phase_library(device):
     acc0 = int(cb.accepted.sum())
     skip0 = int(cb.skipped.sum())
     pos0 = cb.system.position.clone()
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     t0 = time.perf_counter()
     for _ in range(TIMED_BLOCKS):
         cb = hs(cb, params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cb_cuda.disp_substep.launches
+    launches = launch_count() - launches0
 
     attempted = int(cb.attempted.sum()) - att0
     accepted = int(cb.accepted.sum()) - acc0
@@ -597,7 +612,6 @@ def phase_cli(device):
     shortened examples/movie run."""
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.core.energy import total_energy_dense
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     with tempfile.TemporaryDirectory() as tmp:
         steps = 200
@@ -606,12 +620,14 @@ def phase_cli(device):
             ("linear_interval = 500", "linear_interval = 50"),
             ("linear_interval = 1000", "linear_interval = 100"),
         )
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
+        chunks0 = chunk_seconds()
         t0 = time.perf_counter()
         sim = cli.run_file(params)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = cb_cuda.disp_substep.launches
+        launches = launch_count() - launches0
+        sweep_s = chunk_seconds() - chunks0
         energy = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
         accept = np.loadtxt(os.path.join(tmp, "moves", "1", "acceptance.dat"))
         assert os.path.exists(os.path.join(tmp, "chains", "1", "trajectory.exyz"))
@@ -628,8 +644,8 @@ def phase_cli(device):
     emit({
         "phase": "cli", "params": "examples/movie/params.toml (steps 200)", "N": st.n_particles,
         "precision": "f64", "cells": list(sim.cb_spec.ncells), "cap": sim.cb_spec.cap,
-        "inner": sim.inner, "sweep_seconds": sim.sweep_seconds,
-        "sweeps_per_s": steps / sim.sweep_seconds, "run_file_seconds": elapsed,
+        "inner": sim.inner, "sweep_seconds": sweep_s,
+        "sweeps_per_s": steps / sweep_s, "run_file_seconds": elapsed,
         "launches": launches, "acceptance": acceptance,
         "energy_per_particle": float(energy[-1, 1]), "ledger": ledger, "dense": e_dense,
     })
@@ -640,16 +656,14 @@ def phase_cli_kernel_vs_plain(sim, path="cli"):
     """The kernel against its plain version at a CLI path's shapes: the
     CLI run's final state (each chain's threshold from its own
     temperature), grid, pair table, `inner` and sigma, in its float64."""
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     from particlesmc_tpu_torch.models.tables import kinds_present
 
     sigma = dict(sim.pool[0].params)["sigma"]
     args = substep_inputs(sim.mc.system, sim.chains.table, sim.cb_spec, sim.inner, sigma)
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     out = compare(args, kinds_present(sim.chains.table))
-    launches = cb_cuda.disp_substep.launches
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
+    launches = launch_count() - launches0
     emit({"phase": "kernel_vs_plain", "path": path, "shapes": _shapes(args),
           "launches": launches, "f64": out})
     return out, _shapes(args)
@@ -763,7 +777,6 @@ def phase_cli_swap(device):
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.core.energy import total_energy_dense
     from particlesmc_tpu_torch.models.tables import kinds_present
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     n1 = round(LJMIX_N * LJMIX_X)
     L = (LJMIX_N / LJMIX_RHO) ** (1 / 3)
@@ -771,12 +784,14 @@ def phase_cli_swap(device):
         cfg = os.path.join(tmp, "config.exyz")
         ljmix_write_config(n1, LJMIX_N - n1, L, cfg, np.random.default_rng(7))
         params = ljmix_write_params(tmp, cfg, LJMIX_STEPS)
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
+        chunks0 = chunk_seconds()
         t0 = time.perf_counter()
         sim = cli.run_file(params)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = cb_cuda.disp_substep.launches
+        launches = launch_count() - launches0
+        sweep_s = chunk_seconds() - chunks0
         energy = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
     st, spec = sim.mc.system, sim.cb_spec
     assert st.position.device.type == device.type and st.position.dtype == torch.float32
@@ -800,8 +815,8 @@ def phase_cli_swap(device):
         "phase": "cli_swap", "config": "lj-mixture dense point (examples/lj-mixture, x 0.5, T 1.2183, rho 0.8)",
         "N": LJMIX_N, "chains": st.n_chains, "precision": "mixed", "cells": list(spec.ncells),
         "cap": spec.cap, "inner": sim.inner, "sweeps_per_rebin": sim.rebin_every, "steps": LJMIX_STEPS,
-        "sweep_seconds": sim.sweep_seconds, "run_file_seconds": elapsed,
-        "sweeps_per_s": LJMIX_STEPS * st.n_chains / sim.sweep_seconds,
+        "sweep_seconds": sweep_s, "run_file_seconds": elapsed,
+        "sweeps_per_s": LJMIX_STEPS * st.n_chains / sweep_s,
         "launches": launches, "launches_per_block": launches / blocks,
         "kernel_runs_per_round": sum(len(r) for r in runs), "kernel_run_lengths": runs,
         "acceptance": acceptance, "ledger_gap_per_particle": gap,
@@ -810,9 +825,7 @@ def phase_cli_swap(device):
     })
 
     args = substep_inputs(st, sim.chains.table, spec, sim.inner, LJMIX_SIGMA)
-    cb_cuda.disp_substep.launches = 0
     kv = compare(args, kinds_present(sim.chains.table))
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     emit({"phase": "kernel_vs_plain", "path": "cli_swap", "shapes": _shapes(args), "f32": kv})
     return launches, kv, _shapes(args)
 
@@ -854,7 +867,6 @@ def phase_library_energy_bias(device):
     from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     table = T.JBB(torch.float64, device)
@@ -869,13 +881,13 @@ def phase_library_energy_bias(device):
     params = MB.init_pool_params(pool, torch.float64, device)
     hs = CB.build_hyper_sweep_fn(spec, table, KA2D_N, inner=inner, sweeps=sweeps, pool=pool)
     cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     t0 = time.perf_counter()
     for _ in range(KA2D_BLOCKS):
         cb = hs(cb, params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cb_cuda.disp_substep.launches
+    launches = launch_count() - launches0
     st = cb.system
     assert torch.equal(species_counts(st.species, 3), counts0), "a swap changed a chain's composition"
     e_dense = total_energy_dense(st.position, st.species, st.box, table)
@@ -919,7 +931,6 @@ def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs, path=
     kinds = kinds_present(table)
     sigma = dict(pool[0].params)["sigma"]
     lengths = sorted({n for row in runs for n in row})
-    cb_cuda.disp_substep.launches = 0
     by_length = {}
     for n in lengths:
         args = substep_inputs(cb.system, table, spec, n, sigma)
@@ -937,7 +948,6 @@ def phase_bias_kernel_vs_plain(cb, spec, table, pool, params, inner, runs, path=
 
     k_cb = sweep(cb_cuda.disp_substep)
     p_cb = sweep(lambda *a, kinds=None: cb_cuda.disp_substep_plain(*a))
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     ks, ps = k_cb.system, p_cb.system
     assert torch.equal(k_cb.attempted, p_cb.attempted) and torch.equal(k_cb.accepted, p_cb.accepted), \
         "the sweep's counters differ between the kernel and its plain version"
@@ -961,7 +971,6 @@ def phase_cli_smart(device):
     Gaussian slot, so no kernel launch."""
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.core.energy import total_energy_dense
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     steps = 48
     with tempfile.TemporaryDirectory() as tmp:
@@ -971,10 +980,12 @@ def phase_cli_smart(device):
             ("linear_interval = 500", "linear_interval = 16"),
             ("linear_interval = 1000", f"linear_interval = {steps}"),
         )
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
+        chunks0 = chunk_seconds()
         sim = cli.run_file(params)
         torch.cuda.synchronize()
-        launches = cb_cuda.disp_substep.launches
+        launches = launch_count() - launches0
+        sweep_s = chunk_seconds() - chunks0
         accept = np.loadtxt(os.path.join(tmp, "moves", "1", "acceptance.dat"))
     st = sim.mc.system
     assert sim.pool[0].policy == "smart" and st.position.device.type == device.type
@@ -988,7 +999,7 @@ def phase_cli_smart(device):
     emit({
         "phase": "cli_smart", "params": f"examples/movie/params.toml (SmartGaussian, steps {steps})",
         "N": st.n_particles, "precision": "f64", "cells": list(sim.cb_spec.ncells), "cap": sim.cb_spec.cap,
-        "inner": sim.inner, "sweep_seconds": sim.sweep_seconds, "sweeps_per_s": steps / sim.sweep_seconds,
+        "inner": sim.inner, "sweep_seconds": sweep_s, "sweeps_per_s": steps / sweep_s,
         "launches": launches, "acceptance": acceptance, "ledger": ledger, "dense": e_dense,
         "profiled_block_sweeps": 1, "profiled_block": profile,
     })
@@ -1007,7 +1018,6 @@ def phase_library_molecular(device):
     from particlesmc_tpu_torch.core.state import bonds_from_pairs, make_system
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     fx = np.load(os.path.join(ROOT, "tests", "fixtures", "molecule.npz"))
@@ -1031,13 +1041,13 @@ def phase_library_molecular(device):
     hs = CB.build_hyper_sweep_fn(spec, table, n, inner=MOL_INNER, sweeps=MOL_REBIN, pool=pool,
                                  max_bonds=max_bonds)
     cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     t0 = time.perf_counter()
     for _ in range(MOL_BLOCKS):
         cb = hs(cb, params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cb_cuda.disp_substep.launches
+    launches = launch_count() - launches0
     st = cb.system
     e_dense = total_energy_dense(st.position, st.species, st.box, table, st.bonds)
     rel = float(((st.energy - e_dense).abs() / e_dense.abs()).max())
@@ -1207,7 +1217,6 @@ def phase_library_sequential(device):
     larger-ss-3d-cell (cell list through force_cells); then the card against
     the CPU on the same draws."""
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import kernel as K
 
     out = {}
@@ -1215,9 +1224,9 @@ def phase_library_sequential(device):
         for name in SEQ_SCENARIOS:
             n = SEQ_SCENARIOS[name][0]
             sim = sequential_sim(device, name, SEQ_CHAINS, (MB.displacement(SEQ_SIGMA),), tmp)
-            cb_cuda.disp_substep.launches = 0
+            launches0 = launch_count()
             elapsed, mc = seq_timed(sim)
-            assert cb_cuda.disp_substep.launches == 0
+            assert launch_count() == launches0
             K.check_state(mc)  # no cell overflow
             acceptance = move_acceptance(mc)[0]
             assert 0.0 < acceptance < 1.0, f"{name}: acceptance {acceptance}"
@@ -1345,7 +1354,6 @@ def phase_cli_tempering(device):
     its shapes."""
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.core.energy import total_energy_dense
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     out = {}
     for backend, steps, rex_every in (("sequential", 4, 1), ("checkerboard", 32, 8)):
@@ -1365,12 +1373,14 @@ def phase_cli_tempering(device):
             )
             with open(params, "a") as f:
                 f.write(extra)
-            cb_cuda.disp_substep.launches = 0
+            launches0 = launch_count()
+            chunks0 = chunk_seconds()
             t0 = time.perf_counter()
             sim = cli.run_file(params)
             torch.cuda.synchronize()
             elapsed = time.perf_counter() - t0
-            launches = cb_cuda.disp_substep.launches
+            launches = launch_count() - launches0
+            sweep_s = chunk_seconds() - chunks0
             rex = np.loadtxt(os.path.join(tmp, "tempering_acceptance.dat"), ndmin=2)
             sigma = None
             if backend == "sequential":
@@ -1390,7 +1400,7 @@ def phase_cli_tempering(device):
             assert launches == 0
         out[backend] = {
             "steps": steps, "replica_exchange_every": rex_every, "run_file_seconds": elapsed,
-            "sweep_seconds": sim.sweep_seconds, "sweeps_per_s": steps * st.n_chains / sim.sweep_seconds,
+            "sweep_seconds": sweep_s, "sweeps_per_s": steps * st.n_chains / sweep_s,
             "launches": launches, "tempering_acceptance": float(rex[-1, 1]),
             "rex_accepted": sim._rex.accepted, "rex_attempted": sim._rex.attempted,
             "acceptance": move_acceptance(sim.mc), "ledger_max_rel_gap": rel,
@@ -1509,19 +1519,20 @@ def run_pgmc(device, sequential):
     compositions, the ledger against the dense recompute, the card's
     estimate against the CPU's."""
     from particlesmc_tpu_torch.core.energy import total_energy_dense
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     with tempfile.TemporaryDirectory() as tmp:
         sim, sched = pgmc_sim(device, tmp, sequential)
         st0 = sim.mc.system
         counts0 = species_counts(st0.species, 3)
         theta0 = [{k: float(v) for k, v in p.items()} for p in sim.pool_params]
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
+        chunks0 = chunk_seconds()
         t0 = time.perf_counter()
         sim.run()
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
-        launches = cb_cuda.disp_substep.launches
+        launches = launch_count() - launches0
+        sweep_s = chunk_seconds() - chunks0
         rows = [np.loadtxt(os.path.join(tmp, "moves", str(m + 1), "parameters.dat"), ndmin=2) for m in range(3)]
         vs_cpu = estimate_cpu_vs_card(sim, os.path.join(tmp, "cpu"), sequential)
     theta = [{k: float(v) for k, v in p.items()} for p in sim.pool_params]
@@ -1548,8 +1559,8 @@ def run_pgmc(device, sequential):
         "N": n, "chains": chains, "precision": "f64", "steps": steps, "backend": sim.neighbour_mode,
         "q_batch_size": sim._pgmc.q_batch_size, "q_every": sim._pgmc_every,
         "optimisers": [repr(o) for o in sim._pgmc.optimisers],
-        "run_seconds": elapsed, "sweep_seconds": sim.sweep_seconds,
-        "sweeps_per_s": steps * chains / elapsed, "sweeps_per_s_sweeps_alone": steps * chains / sim.sweep_seconds,
+        "run_seconds": elapsed, "sweep_seconds": sweep_s,
+        "sweeps_per_s": steps * chains / elapsed, "sweeps_per_s_sweeps_alone": steps * chains / sweep_s,
         "launches": launches, "theta_start": theta0, "theta_end": theta, "parameter_rows": len(sched),
         "acceptance": move_acceptance(sim.mc), "ledger_max_rel_gap": rel, "estimate_card_vs_cpu": vs_cpu,
         **estimator_cost(sim),
@@ -1604,7 +1615,6 @@ def phase_checkpoint(device):
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.engine.simulation import Simulation
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     out = {}
     steps = CKPT_STEPS
@@ -1617,17 +1627,17 @@ def phase_checkpoint(device):
         with open(params, "a") as f:
             f.write('\n[[simulation.output]]\nalgorithm = "StoreCheckpoints"\n'
                     f"scheduler_params = {{linear_interval = {steps // 2}}}\nhistory = true\n")
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
         a = cli.run_file(params)
-        launches_a = cb_cuda.disp_substep.launches
+        launches_a = launch_count() - launches0
         ckpt = os.path.join(tmp, f"checkpoint_{steps // 2}.npz")
         energy_a = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
-        cb_cuda.disp_substep.launches = 0
+        launches0 = launch_count()
         t0 = time.perf_counter()
         b = cli.run_file(params, resume=ckpt)
         torch.cuda.synchronize()
         resume_s = time.perf_counter() - t0
-        launches_b = cb_cuda.disp_substep.launches
+        launches_b = launch_count() - launches0
         energy_b = np.loadtxt(os.path.join(tmp, "chains", "1", "energy.dat"))
         size = os.path.getsize(ckpt)
     differ = states_equal(a.mc, b.mc)
@@ -1780,7 +1790,6 @@ def phase_library_trim(device, kv, untrimmed_profile):
     from particlesmc_tpu_torch.core.state import make_system
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     # the untrimmed main path is unchanged (its kernel launches: phase_library)
@@ -1802,13 +1811,13 @@ def phase_library_trim(device, kv, untrimmed_profile):
     cb = hs(cb, params)  # warm-up block
     torch.cuda.synchronize()
     att0, acc0, skip0 = int(cb.attempted.sum()), int(cb.accepted.sum()), int(cb.skipped.sum())
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     t0 = time.perf_counter()
     for _ in range(TRIM_TIMED_BLOCKS):
         cb = hs(cb, params)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = cb_cuda.disp_substep.launches
+    launches = launch_count() - launches0
     expected, _ = expected_launches(pool, spec, INNER, N, REBIN * TRIM_TIMED_BLOCKS)
     assert launches == expected > 0, f"{launches} kernel launches, expected {expected}"
     attempted = int(cb.attempted.sum()) - att0
@@ -1829,13 +1838,11 @@ def phase_library_trim(device, kv, untrimmed_profile):
     assert bool(ok.all()), "the comparison's lanes overflow trim_k"
     args_t = (pos_t.contiguous(), sp_t.contiguous()) + tuple(args64[2:])
     kinds = T.kinds_present(table64)
-    cb_cuda.disp_substep.launches = 0
     out = {}
     for dtype in (torch.float64, torch.float32):
         key = "f64" if dtype == torch.float64 else "f32"
         out[key] = compare(tuple(t.to(dtype) for t in args_t), kinds, cap=CAP)
         out[key]["untrimmed_kernel_ms"] = kv[key]["kernel_ms"]
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     shapes = _shapes(args_t, cap=CAP)
     assert shapes["LP"] == CAP + trim_k == 544
     ranges = profile["ranges_ms"]
@@ -1932,14 +1939,13 @@ def spatial_system(device, dtype, temperature=TEMPERATURE):
 def _spatial_run(fn, st, spec, pool, params):
     """One call of `fn` from a fresh state, with its kernel launches (the
     count set to 0 just before and read just after)."""
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
-    cb_cuda.disp_substep.launches = 0
+    launches0 = launch_count()
     cb = fn(cb, params)
     torch.cuda.synchronize()
-    return cb, cb_cuda.disp_substep.launches
+    return cb, launch_count() - launches0
 
 
 def phase_library_spatial(device):
@@ -1956,7 +1962,6 @@ def phase_library_spatial(device):
     is not run here."""
     from particlesmc_tpu_torch.models import tables as T
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
     from particlesmc_tpu_torch.parallel import mesh as PM
     from particlesmc_tpu_torch.parallel import spatial as SP
@@ -2039,9 +2044,7 @@ def phase_library_spatial(device):
     args = (pos[:, :, :A_l].contiguous(), sp[:, :A_l].contiguous(), up[..., :A_l].contiguous(),
             dl[..., :A_l].contiguous(), thr[..., :A_l].contiguous(), lo[:, :A_l].contiguous(),
             hi[:, :A_l].contiguous(), tab)
-    cb_cuda.disp_substep.launches = 0
     kv = compare(args, T.kinds_present(table64))
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     shapes = _shapes(args)
     emit({"phase": "library_spatial", "sigma": SP_SIGMA, "inner": SP_INNER, "sweeps_per_call": SP_SWEEPS,
           "slabs": list(SP_SLABS), "mesh": "device list repeating cuda:0", **out})
@@ -2130,7 +2133,6 @@ def sharded_checks(device):
     resumed at P = 1 (bitwise against the straight run)."""
     from particlesmc_tpu_torch import cli
     from particlesmc_tpu_torch.moves import base as MB
-    from particlesmc_tpu_torch.moves import cb_cuda
 
     out = {}
     sims = []
@@ -2160,9 +2162,9 @@ def sharded_checks(device):
             with open(params, "a") as f:
                 f.write('\n[[simulation.output]]\nalgorithm = "ReplicaExchange"\n'
                         "scheduler_params = {linear_interval = 1}\n")
-            cb_cuda.disp_substep.launches = 0
+            launches0 = launch_count()
             sim, swaps = recorded_swaps(lambda: cli.run_file(params, devices=[device] * P))
-            runs[P] = (sim, swaps, cb_cuda.disp_substep.launches, output_bytes(tmp))
+            runs[P] = (sim, swaps, launch_count() - launches0, output_bytes(tmp))
     (a, _, la, fa), (b, swaps, lb, fb) = runs[1], runs[2]
     differ = states_equal(a.mc, b.mc)
     assert not differ and fa == fb, f"tempering on 2 shards: {differ} or the output files differ"
@@ -2221,7 +2223,6 @@ def phase_library_chains(device):
     sharded checks (sharded_checks)."""
     from particlesmc_tpu_torch.core.energy import total_energy_dense
     from particlesmc_tpu_torch.models import tables as T
-    from particlesmc_tpu_torch.moves import cb_cuda
     from particlesmc_tpu_torch.moves import checkerboard as CB
 
     res, ref, launches_total = {}, None, 0
@@ -2232,7 +2233,7 @@ def phase_library_chains(device):
             assert all(s.system.n_chains == CHAINS // P and s.system.position.device.type == device.type
                        for s in sim.shards)
             per_block, _ = expected_launches(sim.pool, sim.cb_spec, INNER, N, REBIN)
-            cb_cuda.disp_substep.launches = 0
+            launches0 = launch_count()
             sim._run_chunk(REBIN)  # the warm-up block
             att0 = int(sim.counters()[0].sum())
             if ref is None:
@@ -2244,7 +2245,7 @@ def phase_library_chains(device):
             for _ in range(CHAIN_TIMED_BLOCKS):
                 sim._run_chunk(REBIN)  # each ends in a synchronisation
             elapsed = time.perf_counter() - t0
-            launches = cb_cuda.disp_substep.launches
+            launches = launch_count() - launches0
             launches_total += launches
             attempted = int(sim.counters()[0].sum()) - att0
             assert launches == (1 + CHAIN_TIMED_BLOCKS) * per_block * P, (P, launches, per_block)
@@ -2272,7 +2273,6 @@ def phase_library_chains(device):
     spec = CB.make_cb_spec(st.box[0].cpu().numpy(), table.max_cutoff, N, CAP)
     args = tuple(t.to(torch.float32) for t in substep_inputs(st, table, spec, INNER, SIGMA))
     kv = compare(args, T.kinds_present(table))
-    cb_cuda.disp_substep.launches = 0  # comparison launches do not count
     shapes = _shapes(args)
     checks = sharded_checks(device)
     emit({"phase": "library_chains", "N": N, "chains": CHAINS, "precision": "mixed", "inner": INNER,

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import tracing
 from ..models.potentials import (
     bond_potential,
     bond_virial,
@@ -305,13 +306,14 @@ def initialize_energy(state, table: PairTable, check: bool = True, energy_dtype=
     whose energy is infinite or NaN. `energy_dtype` widens the stored ledger
     (mixed precision: float32 positions with a float64 ledger, since an f32
     accumulator at |E| ~ 3e4 rounds each booked ΔE at ~2e-3)."""
-    if energy_dtype is None:
-        e = total_energy_dense(state.position, state.species, state.box, table, state.bonds)
-    else:  # the start of a wider ledger is computed at its width
-        e = total_energy_dense(
-            state.position.to(energy_dtype), state.species,
-            state.box.to(energy_dtype), table.astype(energy_dtype), state.bonds,
-        )
-    if check and not bool(torch.isfinite(e).all()):
-        raise ValueError("Initial configuration has infinite or NaN energy.")
-    return state.replace(energy=e)
+    with tracing.phase("setup.initialize_energy"):
+        if energy_dtype is None:
+            e = total_energy_dense(state.position, state.species, state.box, table, state.bonds)
+        else:  # the start of a wider ledger is computed at its width
+            e = total_energy_dense(
+                state.position.to(energy_dtype), state.species,
+                state.box.to(energy_dtype), table.astype(energy_dtype), state.bonds,
+            )
+        if check and not bool(torch.isfinite(e).all()):
+            raise ValueError("Initial configuration has infinite or NaN energy.")
+        return state.replace(energy=e)

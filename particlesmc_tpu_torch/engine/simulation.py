@@ -44,7 +44,10 @@ compaction (moves/checkerboard.py::ColourSubsteps) and the Metropolis
 entry's `spatial_devices` > 1 cuts one system's grid into that many slabs
 (parallel/spatial.py), one per visible card (or CPU slabs on the CPU).
 `profile_dir` runs the whole run() under torch.profiler and writes its
-trace there.
+trace there, with the port's spans (tracing.py) on its timeline. Each
+engine chunk (the sweeps between two events) is the phase `engine.chunk`,
+its final wait `engine.sync`, each event `engine.event.<algorithm>`
+(tracing.totals()).
 
 `resume=<checkpoint>` continues a run from a StoreCheckpoints file: state,
 counters, policy parameters and step are restored, and the outputs are
@@ -63,6 +66,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import neighbours as NB
 from ..core.state import shared_box
 from ..io import checkpoint as CKPT
@@ -77,11 +81,12 @@ from .callbacks import CALLBACK_REGISTRY
 
 FMT_NAMES = {"XYZ": "xyz", "EXYZ": "exyz", "LAMMPS": "lammps"}
 
-OUTPUTS = (
+# the outputs that _fire_output writes; the others act in _run
+STORES = (
     "StoreCallbacks", "StoreAcceptance", "StoreTrajectories", "StoreLastFrames",
-    "StoreParameters", "StoreCheckpoints", "PrintTimeSteps", "ReplicaExchange",
-    "AdaptiveSigma", "PolicyGradientEstimator", "PolicyGradientUpdate",
+    "StoreParameters", "StoreCheckpoints", "PrintTimeSteps",
 )
+OUTPUTS = STORES + ("ReplicaExchange", "AdaptiveSigma", "PolicyGradientEstimator", "PolicyGradientUpdate")
 
 
 @dataclass
@@ -151,7 +156,6 @@ class Simulation:
         self.verbose = verbose
         self.profile_dir = profile_dir  # torch.profiler trace of run()
         self._tput_mark: Optional[Tuple[float, int]] = None  # (wall, step)
-        self.sweep_seconds = 0.0  # wall time of the sweeps alone, outputs excluded
         self._start_step = 0
 
         algos = [_normalise_algorithm(a) for a in algorithm_list]
@@ -478,9 +482,10 @@ class Simulation:
 
     def _sync(self):
         """Wait for the queued work of every device that runs chains."""
-        for dev in dict.fromkeys(s.system.position.device for s in self._shards):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with tracing.phase("engine.sync"):
+            for dev in dict.fromkeys(s.system.position.device for s in self._shards):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
 
     def _run_chunk(self, n_sweeps: int):
         """`n_sweeps` sweeps of every chain: rebin blocks on the
@@ -488,18 +493,17 @@ class Simulation:
         length here, so one call covers the gap). The shards take turns
         block by block (sweep by sweep), so that each device has work
         queued while the host issues the next shard's."""
-        t0 = time.perf_counter()
-        shards = self._shards
-        if self.parallel_moves:
-            nb, rem = divmod(n_sweeps, self.rebin_every)
-            for f in [self._block(self.rebin_every)] * nb + ([self._block(rem)] if rem else []):
-                shards = [f(mc, params) for mc, params in zip(shards, self.shard_params)]
-        else:
-            for _ in range(n_sweeps):
-                shards = [run(mc, params, 1) for run, mc, params in zip(self._shard_runs, shards, self.shard_params)]
-        self.shards = shards
-        self._sync()  # every output event reads the chains anyway
-        self.sweep_seconds += time.perf_counter() - t0
+        with tracing.phase("engine.chunk"):
+            shards = self._shards
+            if self.parallel_moves:
+                nb, rem = divmod(n_sweeps, self.rebin_every)
+                for f in [self._block(self.rebin_every)] * nb + ([self._block(rem)] if rem else []):
+                    shards = [f(mc, params) for mc, params in zip(shards, self.shard_params)]
+            else:
+                for _ in range(n_sweeps):
+                    shards = [run(mc, params, 1) for run, mc, params in zip(self._shard_runs, shards, self.shard_params)]
+            self.shards = shards
+            self._sync()  # every output event reads the chains anyway
 
     def _collect_event_times(self) -> np.ndarray:
         times = {0, self.steps}
@@ -574,63 +578,66 @@ class Simulation:
 
     def _fire_outputs(self, t: int):
         for a in self.outputs:
-            if a.scheduler is None or t not in a.scheduler:
-                continue
-            if a.name == "StoreCallbacks":
-                for cb in a.callbacks:
-                    name = cb if isinstance(cb, str) else cb.__name__
-                    fn = CALLBACK_REGISTRY[name] if isinstance(cb, str) else cb
-                    vals = fn(self)
-                    for k in range(self.chains.n_chains):
-                        with open(self._chain_file(k, f"{name}.dat"), "a") as f:
-                            f.write(f"{t} {vals[k]:.12g}\n")
-            elif a.name == "StoreAcceptance":
-                # cumulative rates over the whole chain, summed over chains
-                att, acc = self.counters()
-                for m in range(len(self.pool)):
-                    rate = acc[m] / att[m] if att[m] > 0 else 0.0
-                    with open(self._move_file(m, "acceptance.dat"), "a") as f:
-                        f.write(f"{t} {rate:.12g}\n")
-            elif a.name == "StoreTrajectories":
-                ext = formats.FORMAT_EXTENSION[a.fmt]
+            if a.name in STORES and a.scheduler is not None and t in a.scheduler:
+                with tracing.phase("engine.event." + a.name):
+                    self._fire_output(a, t)
+
+    def _fire_output(self, a: Algorithm, t: int):
+        if a.name == "StoreCallbacks":
+            for cb in a.callbacks:
+                name = cb if isinstance(cb, str) else cb.__name__
+                fn = CALLBACK_REGISTRY[name] if isinstance(cb, str) else cb
+                vals = fn(self)
                 for k in range(self.chains.n_chains):
-                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, False))
-                    with open(self._chain_file(k, f"trajectory{ext}"), "a") as f:
-                        f.write(text)
-            elif a.name == "StoreLastFrames":
-                ext = formats.FORMAT_EXTENSION[a.fmt]
-                for k in range(self.chains.n_chains):
-                    text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, True))
-                    with open(self._chain_file(k, f"lastframe{ext}"), "w") as f:
-                        f.write(text)
-            elif a.name == "StoreParameters":
-                for m, p in enumerate(self.pool_params):
-                    if not p:
-                        continue
-                    vals = " ".join(f"{float(v):.12g}" for v in p.values())
-                    with open(self._move_file(m, "parameters.dat"), "a") as f:
-                        f.write(f"{t} {vals}\n")
-            elif a.name == "StoreCheckpoints":
-                name = f"checkpoint_{t}.npz" if a.extra.get("history") else "checkpoint.npz"
-                CKPT.save_checkpoint(
-                    os.path.join(self.path, name), self.mc, self.pool_params, t,
-                    extra={"backend": "cb" if self.parallel_moves else "seq"},
+                    with open(self._chain_file(k, f"{name}.dat"), "a") as f:
+                        f.write(f"{t} {vals[k]:.12g}\n")
+        elif a.name == "StoreAcceptance":
+            # cumulative rates over the whole chain, summed over chains
+            att, acc = self.counters()
+            for m in range(len(self.pool)):
+                rate = acc[m] / att[m] if att[m] > 0 else 0.0
+                with open(self._move_file(m, "acceptance.dat"), "a") as f:
+                    f.write(f"{t} {rate:.12g}\n")
+        elif a.name == "StoreTrajectories":
+            ext = formats.FORMAT_EXTENSION[a.fmt]
+            for k in range(self.chains.n_chains):
+                text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, False))
+                with open(self._chain_file(k, f"trajectory{ext}"), "a") as f:
+                    f.write(text)
+        elif a.name == "StoreLastFrames":
+            ext = formats.FORMAT_EXTENSION[a.fmt]
+            for k in range(self.chains.n_chains):
+                text = formats.write_frame(a.fmt, **self._frame_kwargs(k, t, a.fmt, True))
+                with open(self._chain_file(k, f"lastframe{ext}"), "w") as f:
+                    f.write(text)
+        elif a.name == "StoreParameters":
+            for m, p in enumerate(self.pool_params):
+                if not p:
+                    continue
+                vals = " ".join(f"{float(v):.12g}" for v in p.values())
+                with open(self._move_file(m, "parameters.dat"), "a") as f:
+                    f.write(f"{t} {vals}\n")
+        elif a.name == "StoreCheckpoints":
+            name = f"checkpoint_{t}.npz" if a.extra.get("history") else "checkpoint.npz"
+            CKPT.save_checkpoint(
+                os.path.join(self.path, name), self.mc, self.pool_params, t,
+                extra={"backend": "cb" if self.parallel_moves else "seq"},
+            )
+        elif a.name == "PrintTimeSteps":
+            # sweeps/s since the previous print, outputs included
+            self._sync()
+            now = time.perf_counter()
+            if self._tput_mark is not None and t > self._tput_mark[1]:
+                t0, s0 = self._tput_mark
+                rate = (t - s0) / max(now - t0, 1e-9)
+                agg = rate * self.chains.n_chains
+                print(
+                    f"step {t}/{self.steps}  "
+                    f"{rate:.1f} sweeps/s/chain ({agg:.1f} aggregate)"
                 )
-            elif a.name == "PrintTimeSteps":
-                # sweeps/s since the previous print, outputs included
-                self._sync()
-                now = time.perf_counter()
-                if self._tput_mark is not None and t > self._tput_mark[1]:
-                    t0, s0 = self._tput_mark
-                    rate = (t - s0) / max(now - t0, 1e-9)
-                    agg = rate * self.chains.n_chains
-                    print(
-                        f"step {t}/{self.steps}  "
-                        f"{rate:.1f} sweeps/s/chain ({agg:.1f} aggregate)"
-                    )
-                else:
-                    print(f"step {t}/{self.steps}")
-                self._tput_mark = (now, t)
+            else:
+                print(f"step {t}/{self.steps}")
+            self._tput_mark = (now, t)
 
     # ------------------------------------------------------------------
     def check_health(self):
@@ -703,16 +710,20 @@ class Simulation:
             self._run_chunk(int(nxt - t))
             t = int(nxt)
             if self._sigma_tuner is not None and t in self._sigma_tuner_sched:
-                self._sigma_tuner.step(t)
+                with tracing.phase("engine.event.AdaptiveSigma"):
+                    self._sigma_tuner.step(t)
             if self._rex is not None and t in self._rex_sched:
-                self._rex.step()
-                with open(os.path.join(self.path, "tempering_acceptance.dat"), "a") as f:
-                    f.write(f"{t} {self._rex.rate:.12g}\n")
+                with tracing.phase("engine.event.ReplicaExchange"):
+                    self._rex.step()
+                    with open(os.path.join(self.path, "tempering_acceptance.dat"), "a") as f:
+                        f.write(f"{t} {self._rex.rate:.12g}\n")
             if self._pgmc is not None:
                 if t % self._pgmc_every == 0 or t == self.steps:
-                    self._pgmc.estimate()
+                    with tracing.phase("engine.event.PolicyGradientEstimator"):
+                        self._pgmc.estimate()
                 if t in self._pgmc_update_sched:
-                    self._pgmc.update()
+                    with tracing.phase("engine.event.PolicyGradientUpdate"):
+                        self._pgmc.update()
             self._fire_outputs(t)
         self.check_health()
         return self

@@ -1,5 +1,7 @@
-"""Checkerboard displacement substep on the card: wrapper, plain version and
-launch counter for the CUDA kernel csrc/cb_disp_substep.cu.
+"""Checkerboard displacement substep on the card: wrapper and plain version
+of the CUDA kernel csrc/cb_disp_substep.cu. Each launch adds one to the
+counter `cb_cuda.launches` (tracing.counters()); each nvcc build is one
+call of the `setup.kernel_build` phase (tracing.totals()).
 
 Replaces the TPU kernel `particlesmc_tpu/moves/cb_pallas.py::build_disp_substep`.
 For every chain and every active cell of one colour, it runs the `inner`
@@ -43,6 +45,7 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
 from ..models.potentials import (
     KIND_INVERSE_POWER,
     KIND_LENNARD_JONES,
@@ -111,10 +114,11 @@ def build_library() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libcb_disp_substep.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
+    with tracing.phase("setup.kernel_build"):
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            capture_output=True, text=True,
+        )
     (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stderr}")
@@ -124,14 +128,16 @@ def build_library() -> Path:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cb_disp_substep.argtypes = [i, i] + [p] * 8 + [i] * 7 + [p] * 4
-    lib.cb_disp_substep.restype = i
-    lib.cb_disp_substep_plan.argtypes = [i] * 5 + [p, p]
-    lib.cb_disp_substep_plan.restype = i
-    lib.cb_error_string.argtypes = [i]
-    lib.cb_error_string.restype = ctypes.c_char_p
+    path = build_library()
+    with tracing.phase("setup.kernel_load"):
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.cb_disp_substep.argtypes = [i, i] + [p] * 8 + [i] * 7 + [p] * 4
+        lib.cb_disp_substep.restype = i
+        lib.cb_disp_substep_plan.argtypes = [i] * 5 + [p, p]
+        lib.cb_disp_substep_plan.restype = i
+        lib.cb_error_string.argtypes = [i]
+        lib.cb_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -235,11 +241,8 @@ def disp_substep(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, kinds=Non
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(lib, code, "cb_disp_substep launch")
-    disp_substep.launches += 1
+    tracing.count("cb_cuda.launches")
     return centre, booked, acc
-
-
-disp_substep.launches = 0
 
 
 def disp_substep_plain(packed_pos, packed_sp, up, dl, thr, lo, hi, table, *, cap=None):

@@ -55,6 +55,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.geometry import fold_back
 from ..core.state import ChainBlock, SystemState, draw_batch, own_rows, shared_box
 from ..models.potentials import (
@@ -167,6 +168,14 @@ def _mol_columns(system: SystemState):
     return torch.stack(cols, dim=1).to(system.position.dtype)
 
 
+def _host_copy(data, device, dtype=None):
+    """`data` from host memory as a tensor on `device`: the copy waits for
+    the device's queue, so the block's start waits here (the `cb.host_copy`
+    phase, which times the wait outside the profiler too)."""
+    with tracing.phase("cb.host_copy"):
+        return torch.tensor(data, dtype=dtype, device=device)
+
+
 def rebin(system: SystemState, spec: CBSpec, shift):
     """Bin every chain: returns planes [B, NP, cells, cap], idx
     [B, cells, cap], slot [B, n] and overflow [B].
@@ -178,7 +187,7 @@ def rebin(system: SystemState, spec: CBSpec, shift):
     dev = system.position.device
     box = system.box[:, None, :]
     xs = fold_back(system.position - shift[:, None, :], box)
-    nc = torch.tensor(spec.ncells, device=dev)
+    nc = _host_copy(spec.ncells, dev)
     cvec = torch.clamp(torch.floor(xs / box * nc.to(dt)).long(), torch.zeros_like(nc), nc - 1)
     cell = cvec[..., 0]
     for k in range(1, d):
@@ -198,7 +207,7 @@ def rebin(system: SystemState, spec: CBSpec, shift):
     p = first[..., None] + torch.arange(spec.cap, device=dev)  # [B, cells, cap]
     valid = p < nxt[..., None]
     pc = torch.clamp(p, max=n - 1).reshape(B, -1)
-    fills = torch.tensor([0.0] * d + [-1.0] * (np_ - d), dtype=dt, device=dev)[None, :, None, None]
+    fills = _host_copy([0.0] * d + [-1.0] * (np_ - d), dev, dt)[None, :, None, None]
     taken = torch.gather(sorted_comps, 2, pc[:, None, :].expand(B, np_, pc.shape[1]))
     planes = torch.where(
         valid[:, None], taken.reshape(B, np_, spec.total, spec.cap), fills
@@ -393,8 +402,8 @@ def cell_bounds(spec: CBSpec, box_row, c):
     grids = np.meshgrid(*[2 * np.arange(a) for a in spec.active_dims], indexing="ij")
     coords = np.stack([g.reshape(-1) for g in grids], axis=-1) + np.asarray(c)  # [A, d]
     dt = box_row.dtype
-    side = box_row / torch.tensor(spec.ncells, dtype=dt, device=box_row.device)
-    lo = torch.tensor(coords.T, dtype=dt, device=box_row.device) * side[:, None]
+    side = box_row / _host_copy(spec.ncells, box_row.device, dt)
+    lo = _host_copy(coords.T, box_row.device, dt) * side[:, None]
     return lo.contiguous(), (lo + side[:, None]).contiguous()
 
 
@@ -872,10 +881,10 @@ class _Molecular:
 # ---------------------------------------------------------------------------
 
 
-# profiler range around each sub-move that is not the kernel's, by kind,
-# and around the candidate compaction of a substep
-SUBMOVE_RANGE = "cb_submove."
-TRIM_RANGE = "cb_trim"
+# span (tracing.span) around each sub-move that is not the kernel's, by
+# kind, and around the candidate compaction of a substep
+SUBMOVE_RANGE = "cb.submove."
+TRIM_RANGE = "cb.trim"
 
 
 def _rel_slots(rel, m):
@@ -887,7 +896,7 @@ def _rel_slots(rel, m):
 
 
 def submove_kind(mv) -> str:
-    """The name of a non-kernel sub-move in the profiler: smart,
+    """The name of a non-kernel sub-move's span: smart,
     molecular_displacement, double_uniform, energy_bias or flip."""
     if mv.action == "displacement":
         return "smart" if mv.policy == "smart" else "molecular_displacement"
@@ -999,6 +1008,7 @@ class ColourSubsteps:
         self.molecular = max_bonds > 0
         check_pool(self.pool, self.molecular)
         self.n_moves = len(self.pool)
+        self.submove_spans = [SUBMOVE_RANGE + submove_kind(mv) for mv in self.pool]
         self.species_live = any(mv.action in ("swap", "flip") for mv in self.pool)
         self.kinds = kinds_present(table)  # once here: it reads the table on the host
         rows = _slot_schedule(self.pool, self.C, self.inner).tolist()
@@ -1077,25 +1087,26 @@ class ColourSubsteps:
         batch's shape, or is given it, and keeps its rows."""
         up, ua, dl, up2 = injected
         dt, dev = ctx.temperature.dtype, ctx.temperature.device
-        if up is not None:
-            up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
-            up2_r = up2[:, r] if up2 is not None else None
-        else:
-            shape = (draw_batch(block, B), self.C, self.inner, A)
-            up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
-            ua_r = torch.clamp_min(torch.rand(shape, generator=gen, dtype=dt, device=dev), torch.finfo(dt).tiny)
-            dl_r = torch.randn(shape[:3] + (self.d, A), generator=gen, dtype=dt, device=dev)
-            up2_r = None
-            if self.species_live:  # second per-cell pick (swap or flip partner)
-                up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
-        up_r, ua_r, dl_r = own_rows(up_r, block), own_rows(ua_r, block), own_rows(dl_r, block)
-        up2_r = None if up2_r is None else own_rows(up2_r, block)
-        rnd = {"up": up_r, "dl": dl_r, "up2": up2_r, "log_ua": torch.log(ua_r)}
-        if self.on_kernel:
-            # fold sigma and the temperature into the kernel's draws: it
-            # compares ΔE with thr = -T log(u) and moves by dl * sigma
-            rnd["thr"] = ctx.neg_t * rnd["log_ua"]
-            rnd["dls"] = dl_r * ctx.sigma_slot[None, :, :, None, None]
+        with tracing.span("cb.draws"):
+            if up is not None:
+                up_r, ua_r, dl_r = up[:, r], ua[:, r], dl[:, r]
+                up2_r = up2[:, r] if up2 is not None else None
+            else:
+                shape = (draw_batch(block, B), self.C, self.inner, A)
+                up_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+                ua_r = torch.clamp_min(torch.rand(shape, generator=gen, dtype=dt, device=dev), torch.finfo(dt).tiny)
+                dl_r = torch.randn(shape[:3] + (self.d, A), generator=gen, dtype=dt, device=dev)
+                up2_r = None
+                if self.species_live:  # second per-cell pick (swap or flip partner)
+                    up2_r = torch.rand(shape, generator=gen, dtype=dt, device=dev) * (1.0 - 1e-7)
+            up_r, ua_r, dl_r = own_rows(up_r, block), own_rows(ua_r, block), own_rows(dl_r, block)
+            up2_r = None if up2_r is None else own_rows(up2_r, block)
+            rnd = {"up": up_r, "dl": dl_r, "up2": up2_r, "log_ua": torch.log(ua_r)}
+            if self.on_kernel:
+                # fold sigma and the temperature into the kernel's draws: it
+                # compares ΔE with thr = -T log(u) and moves by dl * sigma
+                rnd["thr"] = ctx.neg_t * rnd["log_ua"]
+                rnd["dls"] = dl_r * ctx.sigma_slot[None, :, :, None, None]
         return rnd
 
     def compact(self, pos, sp, aux, lo, hi):
@@ -1140,11 +1151,12 @@ class ColourSubsteps:
         cap = self.cap
         dt = padded.dtype
         tabs = ctx.tabs
-        pos, sp, aux = extract_colour(padded, spec, c)
+        with tracing.span("cb.extract"):
+            pos, sp, aux = extract_colour(padded, spec, c)
         ok_sub = None
         log_ua_c = rnd["log_ua"]
         if self.trim_k is not None:
-            with torch.profiler.record_function(TRIM_RANGE):
+            with tracing.span(TRIM_RANGE):
                 pos, sp, aux, ok_sub = self.compact(pos, sp, aux, lo, hi)
             # a trim overflow: the substep is the identity for its chain
             log_ua_c = torch.where(ok_sub[:, None, None], log_ua_c, math.inf)
@@ -1167,13 +1179,14 @@ class ColourSubsteps:
                 pos[..., :cap] = centre
                 centre = None
             if kernel_run:
-                thr = rnd["thr"][:, k0:k1]
-                thr = thr.contiguous() if ok_sub is None else torch.where(ok_sub[:, None, None], thr, -math.inf)
-                centre, booked, acc_k = disp_substep(
-                    pos, sp, up_c[:, k0:k1].contiguous(), rnd["dls"][:, k0:k1].contiguous(),
-                    thr, lo, hi, tabs.packed, kinds=self.kinds, **lanes,
-                )
-                energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
+                with tracing.span("cb.kernel"):
+                    thr = rnd["thr"][:, k0:k1]
+                    thr = thr.contiguous() if ok_sub is None else torch.where(ok_sub[:, None, None], thr, -math.inf)
+                    centre, booked, acc_k = disp_substep(
+                        pos, sp, up_c[:, k0:k1].contiguous(), rnd["dls"][:, k0:k1].contiguous(),
+                        thr, lo, hi, tabs.packed, kinds=self.kinds, **lanes,
+                    )
+                    energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
                 kernel_accepts.append((moves, acc_k))
                 continue
             k = k0
@@ -1185,7 +1198,7 @@ class ColourSubsteps:
             temperature = ctx.temperature
             if mv.action != "swap":  # floor(u * occ) is uniform over [0, occ)
                 pick = ctx.slot_iota == torch.floor(up_c[:, k] * occ.to(dt)).long()[..., None]
-            with torch.profiler.record_function(SUBMOVE_RANGE + submove_kind(mv)):
+            with tracing.span(self.submove_spans[m]):
                 if mv.action == "displacement" and mv.policy == "smart":
                     new_pos, booked, accept = _disp_submove_smart(
                         tabs, cpos, csp, opos, osp, pick, rnd["dl"][:, k], ctx.sigmas[m],
@@ -1216,20 +1229,23 @@ class ColourSubsteps:
                     )
                     sp[..., :cap] = new_sp
             energy = energy + torch.sum(booked.to(energy.dtype), dim=-1)
-            att[:, m] += occupied_cells
-            acc[:, m] += accept.sum(dim=-1)
+            with tracing.span("cb.counters"):
+                att[:, m] += occupied_cells
+                acc[:, m] += accept.sum(dim=-1)
         if centre is None:
             centre = pos[..., :cap]
-        write(centre, sp[..., :cap] if self.species_live else None)
-        if kernel_accepts and not self.has_other[ci]:
-            occupied_cells = torch.sum(torch.any(sp[..., :cap] >= 0, dim=-1), dim=-1)  # [B]
-            if ok_sub is not None:
-                occupied_cells = occupied_cells * ok_sub
-        for moves, acc_k in kernel_accepts:
-            for m, rel, count in moves:
-                att[:, m] += occupied_cells * count
-                idx = rel if isinstance(rel, slice) else self.device_index(rel, acc_k.device)
-                acc[:, m] += torch.sum(acc_k[..., idx], dim=(1, 2))
+        with tracing.span("cb.write_back"):
+            write(centre, sp[..., :cap] if self.species_live else None)
+        with tracing.span("cb.counters"):
+            if kernel_accepts and not self.has_other[ci]:
+                occupied_cells = torch.sum(torch.any(sp[..., :cap] >= 0, dim=-1), dim=-1)  # [B]
+                if ok_sub is not None:
+                    occupied_cells = occupied_cells * ok_sub
+            for moves, acc_k in kernel_accepts:
+                for m, rel, count in moves:
+                    att[:, m] += occupied_cells * count
+                    idx = rel if isinstance(rel, slice) else self.device_index(rel, acc_k.device)
+                    acc[:, m] += torch.sum(acc_k[..., idx], dim=(1, 2))
         return energy, ok_sub
 
 
@@ -1322,36 +1338,40 @@ def build_hyper_sweep_fn(
     R = max(1, int(sweeps)) * rounds
 
     def hyper_sweep(cb: CBState, pool_params, *, shift=None, up=None, ua=None, dl=None, up2=None):
-        system = cb.system
-        B = system.n_chains
-        dt = system.position.dtype
-        dev = system.position.device
-        box = system.box
-        plan.check_injected(up, ua, dl, up2)
-        ctx = plan.context(system, pool_params)
-        if shift is None:
-            shift = torch.rand((draw_batch(cb.chains, B), d), generator=cb.generator, dtype=dt, device=dev)
-        shift = own_rows(shift, cb.chains) * box
-        planes0, idx, slot, ovf = rebin(system, spec, shift)
-        padded = pad_grid(planes0, spec, box)
-        bounds = [cell_bounds(spec, box[0], c) for c in cols]
-        energy = system.energy.clone()
-        att = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
-        acc = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
-        skp = torch.zeros(B, dtype=torch.int64, device=dev) if plan.trim_k is not None else None
-        for r in range(R):
-            rnd = plan.round_draws(ctx, B, A, cb.generator, (up, ua, dl, up2), r, cb.chains)
-            for ci, c in enumerate(cols):
-                def write(centre, centre_sp, c=c):
-                    write_back(padded, spec, c, centre, box, centre_sp)
+        with tracing.span("cb.block"):
+            system = cb.system
+            B = system.n_chains
+            dt = system.position.dtype
+            dev = system.position.device
+            box = system.box
+            plan.check_injected(up, ua, dl, up2)
+            with tracing.span("cb.rebin"):  # the block's start
+                ctx = plan.context(system, pool_params)
+                if shift is None:
+                    shift = torch.rand((draw_batch(cb.chains, B), d), generator=cb.generator, dtype=dt, device=dev)
+                shift = own_rows(shift, cb.chains) * box
+                planes0, idx, slot, ovf = rebin(system, spec, shift)
+                padded = pad_grid(planes0, spec, box)
+                bounds = [cell_bounds(spec, box[0], c) for c in cols]
+                energy = system.energy.clone()
+                att = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
+                acc = torch.zeros((B, plan.n_moves), dtype=torch.int64, device=dev)
+                skp = torch.zeros(B, dtype=torch.int64, device=dev) if plan.trim_k is not None else None
+            for r in range(R):
+                rnd = plan.round_draws(ctx, B, A, cb.generator, (up, ua, dl, up2), r, cb.chains)
+                for ci, c in enumerate(cols):
+                    with tracing.span("cb.substep"):
+                        def write(centre, centre_sp, c=c):
+                            write_back(padded, spec, c, centre, box, centre_sp)
 
-                rnd_c = {key: v[:, ci] for key, v in rnd.items() if v is not None}
-                energy, ok_sub = plan.run(ctx, padded, spec, c, ci, *bounds[ci], rnd_c, energy, att, acc, write)
-                if ok_sub is not None:
-                    skp = skp + (~ok_sub).long()
-        interior = (slice(None), slice(None)) + (slice(1, -1),) * d
-        planes = padded[interior].reshape(planes0.shape)
-        return finish_block(cb, n, shift, planes, idx, slot, ovf, energy, att, acc, skp, plan.species_live)
+                        rnd_c = {key: v[:, ci] for key, v in rnd.items() if v is not None}
+                        energy, ok_sub = plan.run(ctx, padded, spec, c, ci, *bounds[ci], rnd_c, energy, att, acc, write)
+                        if ok_sub is not None:
+                            skp = skp + (~ok_sub).long()
+            with tracing.span("cb.finish"):
+                interior = (slice(None), slice(None)) + (slice(1, -1),) * d
+                planes = padded[interior].reshape(planes0.shape)
+                return finish_block(cb, n, shift, planes, idx, slot, ovf, energy, att, acc, skp, plan.species_live)
 
     hyper_sweep.plan = plan
     return hyper_sweep

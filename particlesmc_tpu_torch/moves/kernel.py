@@ -64,6 +64,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core import neighbours as NB
 from ..core.energy import (
     Override, particle_energy, particle_energy_nogather, per_particle_energies, per_particle_energies_of, take,
@@ -687,43 +688,48 @@ class _Kernel:
 
     def step(self, w: _Work, pool_params, dr, counts):
         """One step of every chain, in place on `w`; returns accept [B]."""
-        st = w.system
-        pos, sp = w.position, w.species
-        move = dr["move"]
-        ctx = _Ctx(self, w, pool_params, counts)
-        prop = None
-        for fn, moves in self.proposals:
-            p = fn(ctx, moves, move, dr)
-            if prop is None:
-                prop = p
-            else:
-                mask = _in_moves(move, moves)
-                prop = Proposal(*(
-                    torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-                    for a, b in zip(p, prop)
-                ))
-        i, j = prop.i, prop.j
-        x_i = _at(pos, i)
-        e1, e2 = self.delta_e(w, prop, x_i)
+        with tracing.span("seq.step"):
+            st = w.system
+            pos, sp = w.position, w.species
+            move = dr["move"]
+            with tracing.span("seq.propose"):
+                ctx = _Ctx(self, w, pool_params, counts)
+                prop = None
+                for fn, moves in self.proposals:
+                    p = fn(ctx, moves, move, dr)
+                    if prop is None:
+                        prop = p
+                    else:
+                        mask = _in_moves(move, moves)
+                        prop = Proposal(*(
+                            torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
+                            for a, b in zip(p, prop)
+                        ))
+            i, j = prop.i, prop.j
+            with tracing.span("seq.delta_e"):
+                x_i = _at(pos, i)
+                e1, e2 = self.delta_e(w, prop, x_i)
 
-        # Metropolis-Hastings
-        log_alpha = -(e2 - e1) / st.temperature + prop.log_q_rev - prop.log_q_fwd
-        log_alpha = torch.where(torch.isnan(log_alpha), -math.inf, log_alpha)
-        accept = torch.log(dr["u"]) < log_alpha
+            with tracing.span("seq.accept"):
+                # Metropolis-Hastings
+                log_alpha = -(e2 - e1) / st.temperature + prop.log_q_rev - prop.log_q_fwd
+                log_alpha = torch.where(torch.isnan(log_alpha), -math.inf, log_alpha)
+                accept = torch.log(dr["u"]) < log_alpha
 
-        # the ledger, with the Inf guard; f32 ΔE widens into an f64 ledger
-        de = torch.where(torch.isinf(e1) | torch.isinf(e2), 0.0, e2 - e1)
-        w.energy += torch.where(accept, de, 0.0)
+                # the ledger, with the Inf guard; f32 ΔE widens into an f64 ledger
+                de = torch.where(torch.isinf(e1) | torch.isinf(e2), 0.0, e2 - e1)
+                w.energy += torch.where(accept, de, 0.0)
 
-        new_pos_i = torch.where(accept[:, None], prop.pos_i, x_i)
-        new_sp_i = torch.where(accept, prop.sp_i, _at(sp, i))
-        new_sp_j = torch.where(accept, prop.sp_j, _at(sp, j))
-        pos.scatter_(1, i[:, None, None].expand(-1, 1, pos.shape[-1]), new_pos_i[:, None])
-        sp.scatter_(1, i[:, None], new_sp_i[:, None])
-        sp.scatter_(1, j[:, None], new_sp_j[:, None])
-        if self.spec is not None:
-            NB.move_particle_(w.cell, i, NB.cell_index(new_pos_i, st.box, self.spec))
-        return accept
+                new_pos_i = torch.where(accept[:, None], prop.pos_i, x_i)
+                new_sp_i = torch.where(accept, prop.sp_i, _at(sp, i))
+                new_sp_j = torch.where(accept, prop.sp_j, _at(sp, j))
+                pos.scatter_(1, i[:, None, None].expand(-1, 1, pos.shape[-1]), new_pos_i[:, None])
+                sp.scatter_(1, i[:, None], new_sp_i[:, None])
+                sp.scatter_(1, j[:, None], new_sp_j[:, None])
+            if self.spec is not None:
+                with tracing.span("seq.cell_update"):
+                    NB.move_particle_(w.cell, i, NB.cell_index(new_pos_i, st.box, self.spec))
+            return accept
 
     def delta_e(self, w: _Work, prop: Proposal, x_i):
         """(e1, e2) [B] of the step's proposals on the working state."""
@@ -732,22 +738,23 @@ class _Kernel:
 
     def prepare(self, mc: MCState, steps: int, draws):
         """The sweep's draws (checked when fed in) and species counts."""
-        if draws is None:
-            draws = self.draw_sweep(mc, steps)
-        else:
-            need = self.draw_keys()
-            if set(draws) != need:
-                raise ValueError(f"this pool takes draws {sorted(need)}, got {sorted(draws)}")
-            if any(v.shape[1] != steps for v in draws.values()):
-                raise ValueError(f"draws must cover the sweep's {steps} steps")
-            draws = {k: own_rows(v, mc.chains) for k, v in draws.items()}
-        counts = None
-        if self.has_uniform:
-            sp = mc.system.species
-            counts = torch.zeros((sp.shape[0], self.config.table.n_species), dtype=torch.int64, device=sp.device)
-            counts.scatter_add_(1, sp, torch.ones_like(sp))
-            if "r1" in draws and draws["r1"].is_floating_point():
-                draws = self._scale_ranks(draws, counts)
+        with tracing.span("seq.draws"):
+            if draws is None:
+                draws = self.draw_sweep(mc, steps)
+            else:
+                need = self.draw_keys()
+                if set(draws) != need:
+                    raise ValueError(f"this pool takes draws {sorted(need)}, got {sorted(draws)}")
+                if any(v.shape[1] != steps for v in draws.values()):
+                    raise ValueError(f"draws must cover the sweep's {steps} steps")
+                draws = {k: own_rows(v, mc.chains) for k, v in draws.items()}
+            counts = None
+            if self.has_uniform:
+                sp = mc.system.species
+                counts = torch.zeros((sp.shape[0], self.config.table.n_species), dtype=torch.int64, device=sp.device)
+                counts.scatter_add_(1, sp, torch.ones_like(sp))
+                if "r1" in draws and draws["r1"].is_floating_point():
+                    draws = self._scale_ranks(draws, counts)
         return draws, counts
 
     def _scale_ranks(self, draws, counts):

@@ -38,6 +38,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..models.tables import PairTable
 from ..moves.checkerboard import (
     CBSpec,
@@ -51,8 +52,8 @@ from ..moves.checkerboard import (
 )
 from .mesh import Mesh
 
-# profiler range around each exchange of the dimension-0 halo columns
-HALO_RANGE = "cb_halo"
+# span (tracing.span) around each exchange of the dimension-0 halo columns
+HALO_RANGE = "spatial.halo"
 
 
 def spatial_slab_width(spec: CBSpec, n_devices: int) -> Optional[int]:
@@ -257,22 +258,23 @@ def build_spatial_hyper_sweep_fn(
             atts.append(torch.zeros((B, plan.n_moves), dtype=torch.int64, device=sdev))
             accs.append(torch.zeros((B, plan.n_moves), dtype=torch.int64, device=sdev))
         lx = [b[:, 0] for b in boxes]
-        with torch.profiler.record_function(HALO_RANGE):
+        with tracing.span(HALO_RANGE):
             exchange.halos(slabs, lx)
         for r in range(R):
             rnd = plan.round_draws(ctx0, B, A, cb.generator, (up, ua, dl, up2), r)
             for ci, c in enumerate(cols):
                 for i, p in enumerate(slabs_here):
-                    sdev = mesh.devices[i]
-                    a0 = p * A_l
-                    rnd_c = {key: v[:, ci, ..., a0:a0 + A_l].to(sdev) for key, v in rnd.items() if v is not None}
+                    with tracing.span("cb.substep"):
+                        sdev = mesh.devices[i]
+                        a0 = p * A_l
+                        rnd_c = {key: v[:, ci, ..., a0:a0 + A_l].to(sdev) for key, v in rnd.items() if v is not None}
 
-                    def write(centre, centre_sp, slab=slabs[i], c=c, bx=boxes[i]):
-                        write_back(slab, local, c, centre, bx, centre_sp, first_dim=1)
+                        def write(centre, centre_sp, slab=slabs[i], c=c, bx=boxes[i]):
+                            write_back(slab, local, c, centre, bx, centre_sp, first_dim=1)
 
-                    energies[i], _ = plan.run(ctxs[i], slabs[i], local, c, ci, *lims[i][ci], rnd_c,
-                                              energies[i], atts[i], accs[i], write)
-                with torch.profiler.record_function(HALO_RANGE):
+                        energies[i], _ = plan.run(ctxs[i], slabs[i], local, c, ci, *lims[i][ci], rnd_c,
+                                                  energies[i], atts[i], accs[i], write)
+                with tracing.span(HALO_RANGE):
                     exchange.halos(slabs, lx)
         interior = (slice(None), slice(None), slice(1, w + 1)) + (slice(1, -1),) * (d - 1)
         planes = exchange.gather([s[interior] for s in slabs], dev).reshape(planes0.shape)

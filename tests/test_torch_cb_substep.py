@@ -13,6 +13,7 @@ import torch
 from particlesmc_tpu.models import potentials as JP
 from particlesmc_tpu.models import tables as JT
 from particlesmc_tpu.moves.cb_pallas import build_disp_substep
+from particlesmc_tpu_torch import tracing
 from particlesmc_tpu_torch.core.energy import initialize_energy
 from particlesmc_tpu_torch.core.state import make_system
 from particlesmc_tpu_torch.models import tables as TT
@@ -43,10 +44,10 @@ def test_plain_substep_matches_pallas_interpret(d, cap, model):
         *(jnp.asarray(x) for x in (pos, sp, up, dl, thr, lo, hi))
     )
 
-    launches = cb_cuda.disp_substep.launches
+    launches = tracing.counters().get("cb_cuda.launches", 0)
     t = [torch.tensor(x) for x in (pos, sp, up, dl, thr, lo, hi)]
     centre, booked, acc = cb_cuda.disp_substep(*t, cb_cuda.pack_table(tt, torch.float64))
-    assert cb_cuda.disp_substep.launches == launches  # CPU tensors never launch
+    assert tracing.counters().get("cb_cuda.launches", 0) == launches  # CPU tensors never launch
 
     assert centre.shape == (2, d, A, cap) and acc.shape == (2, A, inner)
     np.testing.assert_array_equal(acc.sum(dim=1).numpy(), np.asarray(j_acc))
@@ -106,10 +107,10 @@ def test_cpu_substep_with_kinds_is_the_plain_version(d, cap, model):
     table = _table(model)
     args = [torch.tensor(x) for x in make_inputs(d, cap, 3, table.n_species, A=5, seed=cap)]
     args.append(cb_cuda.pack_table(table, torch.float64))
-    launches = cb_cuda.disp_substep.launches
+    launches = tracing.counters().get("cb_cuda.launches", 0)
     got = cb_cuda.disp_substep(*args, kinds=TT.kinds_present(table))
     want = cb_cuda.disp_substep_plain(*args)
-    assert cb_cuda.disp_substep.launches == launches
+    assert tracing.counters().get("cb_cuda.launches", 0) == launches
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int(got[2].sum()) > 0

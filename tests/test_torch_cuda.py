@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from particlesmc_tpu_torch import tracing
 from particlesmc_tpu_torch.core import neighbours as NB
 from particlesmc_tpu_torch.core.state import make_system, mol_table
 from particlesmc_tpu_torch.core.energy import initialize_energy, total_energy_dense
@@ -63,9 +64,9 @@ def test_kernel_matches_plain(cuda, d, cap, model, A, inner, dtype, kinds_given)
         for x in make_inputs(d, cap, inner, table.n_species, chains=3, A=A, seed=cap)
     ] + [cb_cuda.pack_table(table, dtype)]
     kinds = TT.kinds_present(table) if kinds_given else None
-    launches = cb_cuda.disp_substep.launches
+    launches = tracing.counters().get("cb_cuda.launches", 0)
     k_pos, k_booked, k_acc = cb_cuda.disp_substep(*args, kinds=kinds)
-    assert cb_cuda.disp_substep.launches == launches + 1
+    assert tracing.counters().get("cb_cuda.launches", 0) == launches + 1
     p_pos, p_booked, p_acc = cb_cuda.disp_substep_plain(*args)
     torch.cuda.synchronize()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -94,7 +95,7 @@ def test_launch_plan_and_refusals(cuda):
         torch.tensor(x, device=cuda)
         for x in make_inputs(d, cap, inner, 2, chains=1, A=1, seed=0)
     ] + [cb_cuda.pack_table(TT.KobAndersen(torch.float64, cuda), torch.float64)]
-    launches = cb_cuda.disp_substep.launches
+    launches = tracing.counters().get("cb_cuda.launches", 0)
     with pytest.raises(RuntimeError, match="shared memory"):
         cb_cuda.disp_substep(*args)
     args = [
@@ -104,7 +105,7 @@ def test_launch_plan_and_refusals(cuda):
         mp.setitem(cb_cuda._KIND_VARIANTS, (TT.KIND_LENNARD_JONES,), 7)
         with pytest.raises(RuntimeError, match="variant"):
             cb_cuda.disp_substep(*args, kinds=(TT.KIND_LENNARD_JONES,))
-    assert cb_cuda.disp_substep.launches == launches
+    assert tracing.counters().get("cb_cuda.launches", 0) == launches
 
 
 POOLS = {
@@ -147,10 +148,10 @@ def test_hyper_sweep_cuda_matches_cpu(cuda, pool_name):
         if swaps:
             draws["up2"] = g.uniform(0, 1 - 1e-7, (2, R, C, 4, A))
         cb = CB.init_cb_state(st, spec, seed=0, n_moves=len(pool))
-        before = cb_cuda.disp_substep.launches
+        before = tracing.counters().get("cb_cuda.launches", 0)
         out[dev.type] = hs(cb, MB.init_pool_params(pool, device=dev),
                            **{k: torch.tensor(v, device=dev) for k, v in draws.items()})
-        launches[dev.type] = cb_cuda.disp_substep.launches - before
+        launches[dev.type] = tracing.counters().get("cb_cuda.launches", 0) - before
         runs = sum(
             seg[2] for ci in range(C)
             for seg in CB.schedule_segments(CB._slot_schedule(pool, C, 4)[ci], pool, kernel=True)
@@ -373,10 +374,10 @@ def test_trimmed_hyper_sweep_cuda_matches_cpu(cuda, pool_name):
                      ua=g.uniform(1e-300, 1, (2, R, C, 4, A)), dl=g.normal(0, 1, (2, R, C, 4, d, A)))
         if any(m.action == "swap" for m in pool):
             draws["up2"] = g.uniform(0, 1 - 1e-7, (2, R, C, 4, A))
-        before = cb_cuda.disp_substep.launches
+        before = tracing.counters().get("cb_cuda.launches", 0)
         out[dev.type] = hs(CB.init_cb_state(st, spec, seed=0, n_moves=len(pool)), MB.init_pool_params(pool, device=dev),
                            **{k: torch.tensor(v, device=dev) for k, v in draws.items()})
-        launches[dev.type] = cb_cuda.disp_substep.launches - before
+        launches[dev.type] = tracing.counters().get("cb_cuda.launches", 0) - before
         runs = sum(seg[2] for segs in hs.plan.segments for seg in segs)
     assert launches == {"cpu": 0, "cuda": R * runs}
     a, b = out["cpu"], out["cuda"]
@@ -439,9 +440,9 @@ def test_spatial_p2_cuda_matches_unsharded(cuda):
                                            inner=3, pool=pool)
     out, launches = [], []
     for fn in (ref, spat):
-        before = cb_cuda.disp_substep.launches
+        before = tracing.counters().get("cb_cuda.launches", 0)
         out.append(fn(CB.init_cb_state(st, spec, seed=4, n_moves=2), params))
-        launches.append(cb_cuda.disp_substep.launches - before)
+        launches.append(tracing.counters().get("cb_cuda.launches", 0) - before)
     a, b = out
     assert launches[1] == 2 * launches[0] > 0
     assert torch.equal(a.system.position, b.system.position) and torch.equal(a.system.species, b.system.species)
@@ -512,9 +513,9 @@ def test_chain_shards_cuda_match_unsharded(cuda, tmp_path):
     for devices in ([cuda], [cuda, cuda]):
         sim = _main_path_sim(cuda, tmp_path, devices, str(len(devices)))
         assert (sim.mesh is None) == (len(devices) == 1)
-        before = cb_cuda.disp_substep.launches
+        before = tracing.counters().get("cb_cuda.launches", 0)
         sim._run_chunk(4)
-        launches.append(cb_cuda.disp_substep.launches - before)
+        launches.append(tracing.counters().get("cb_cuda.launches", 0) - before)
         out.append(sim)
     ref, sh = out
     assert launches[1] == 2 * launches[0] > 0
