@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernel from the sources in this checkout (printing ptxas's
-registers and spills of each instantiation), holds it against its plain
-PyTorch version at the shapes of the main path (the potential variant for
-the table's kinds, and the generic variant), then drives the main path
+Builds the CUDA kernels from the sources in this checkout (printing
+ptxas's registers and spills of each instantiation), holds the
+checkerboard's against its plain PyTorch version at the shapes of the main
+path (the potential variant for the table's kinds, and the generic
+variant), then drives the main path
 through the two entry points a user calls: the library (N = 10,000
 Kob-Andersen LJ in 3D, 256 chains, mixed precision, 48 sub-moves per cell
 and colour, 16 sweeps per rebin) and the TOML CLI on a shortened copy of
@@ -26,13 +27,20 @@ other glue and idle:
 - cli_smart: examples/movie/params.toml with SmartGaussian (no kernel);
 - library_molecular: molecule.npz (1000 trimers, N = 3000) cloned to 16
   chains with Displacement + MoleculeFlip (no kernel).
-Then the sequential kernel (no kernel launch), each path with a traced
-16-step sweep for its device launches and stream synchronisations per step:
+Then the sequential kernel, each path with four traced 16-step sweeps for
+its device launches and stream synchronisations per step:
 - library_sequential: benchmarks/scenarios.py's large-2d-dense (2D JBB,
-  N = 1000, dense ΔE) and larger-ss-3d-cell (3D BHHP, N = 3000, cell list
-  through force_cells), 64 chains, mixed precision, one warm-up and one
-  timed sweep each; then one float64 sweep at N = 64 on the card against
-  the same sweep on the CPU on the same draws;
+  N = 1000, dense ΔE, through the hand kernel of the sequential sweep,
+  csrc/seq_disp_sweep.cu) and larger-ss-3d-cell (3D BHHP, N = 3000, cell
+  list through force_cells, the plain step), 64 chains, mixed precision,
+  one warm-up and one timed sweep each, with the kernel's launches and
+  chain-steps (`seq_cuda.launches`, `seq_cuda.steps`) over those two sweeps
+  (large-2d-dense must reach the kernel, larger-ss-3d-cell must not); then
+  one float64 sweep at N = 64 on the card against the same sweep on the CPU
+  on the same draws, and one sweep at large-2d-dense's shape in mixed
+  precision and one in float64 through the kernel against the plain step
+  on the card, on the same draws (the kernel's and the plain step's
+  milliseconds beside the kernel's bound);
 - library_sequential_swap: large-2d-dense, 8 chains, one timed sweep of
   Displacement + DoubleUniform + EnergyBias swaps after a 16-step warm-up;
 - library_sequential_molecular: molecule.npz x 4 chains, one timed sweep of
@@ -185,26 +193,43 @@ def phase_device():
 VARIANT_NAMES = {0: "generic", 1: "inverse_power", 2: "lennard_jones", 3: "smooth_lj"}
 
 
-def phase_build():
-    from particlesmc_tpu_torch.moves import cb_cuda
-
-    cached = any(cb_cuda.BUILD_ROOT.glob("*/libcb_disp_substep.so"))
-    t0 = time.perf_counter()
-    lib = cb_cuda.build_library()
-    build_s = time.perf_counter() - t0
-    log = (lib.parent / "build.log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    # registers and spills of each instantiation <dtype, d, variant>
+def _ptxas_by_kernel(log, pattern, name):
+    """Registers and spills of each instantiation in an nvcc log: the lines
+    after each entry whose mangled name matches `pattern`, keyed by
+    name(match)."""
     by_kernel, current = {}, None
     for ln in log.splitlines():
-        m = re.search(r"disp_substep_kernelI([fd])Li(\d)ELi(\d)E", ln)
+        m = re.search(pattern, ln)
         if m and ("Compiling entry" in ln or "Function properties" in ln):
-            dt = "f32" if m.group(1) == "f" else "f64"
-            current = f"{dt} d={m.group(2)} {VARIANT_NAMES[int(m.group(3))]}"
+            current = name(m)
         elif current and ("registers" in ln or "spill" in ln):
             by_kernel.setdefault(current, []).append(ln.split(":", 1)[-1].strip())
-    emit({"phase": "build", "seconds": build_s, "cached": cached, "library": str(lib.relative_to(ROOT)),
-          "ptxas": ptxas, "ptxas_by_kernel": by_kernel})
+    return by_kernel
+
+
+def phase_build():
+    """Both kernels' builds: seconds, and ptxas's registers and spills of
+    each instantiation (cb_disp_substep <dtype, d, variant>; seq_disp_sweep
+    <positions, ledger, d, variant, chain in shared memory>)."""
+    from particlesmc_tpu_torch.moves import cb_cuda, seq_cuda
+
+    dts = {"f": "f32", "d": "f64"}
+    out = {"phase": "build"}
+    for key, source, pattern, name in (
+        ("cb_disp_substep", cb_cuda.SOURCE, r"disp_substep_kernelI([fd])Li(\d)ELi(\d)E",
+         lambda m: f"{dts[m.group(1)]} d={m.group(2)} {VARIANT_NAMES[int(m.group(3))]}"),
+        ("seq_disp_sweep", seq_cuda.SOURCE, r"seq_disp_sweep_kernelI([fd])([fd])Li(\d)ELi(\d)ELb(\d)E",
+         lambda m: f"{dts[m.group(1)]}/{dts[m.group(2)]} d={m.group(3)} {VARIANT_NAMES[int(m.group(4))]} "
+                   f"{'shared' if m.group(5) == '1' else 'L2'}"),
+    ):
+        cached = any(cb_cuda.BUILD_ROOT.glob(f"*/lib{source.stem}.so"))
+        t0 = time.perf_counter()
+        lib = cb_cuda.build_library(source)
+        build_s = time.perf_counter() - t0
+        log = (lib.parent / "build.log").read_text()
+        out[key] = {"seconds": build_s, "cached": cached, "library": str(lib.relative_to(ROOT)),
+                    "ptxas_by_kernel": _ptxas_by_kernel(log, pattern, name)}
+    emit(out)
 
 
 def bench_system(device, seed=0):
@@ -1075,7 +1100,7 @@ def phase_library_molecular(device):
 # --- the sequential kernel at the reference benchmark matrix's sizes -------
 # (benchmarks/scenarios.py, the reference's benchmark/particles_benchmarks.jl:
 # 64 chains, sigma 0.1, float32 positions with a float64 ledger)
-SEQ_CHAINS, SEQ_SIGMA, SEQ_TRACE_STEPS = 64, 0.1, 16
+SEQ_CHAINS, SEQ_SIGMA, SEQ_TRACE_STEPS, SEQ_TRACE_SWEEPS = 64, 0.1, 16, 4
 SEQ_SCENARIOS = {
     # name: (N, d, density, temperature, model, species fractions, cell list)
     "large-2d-dense": (1000, 2, 1.1920748468939728, 0.8, "JBB", (0.46, 0.26, 0.28), False),
@@ -1129,18 +1154,28 @@ def sequential_sim(device, name, chains, pool, tmp, dtype=torch.float32, devices
 
 
 def trace_steps(sim, mc):
-    """Device launches and stream synchronisations per step, from a traced
-    sweep of SEQ_TRACE_STEPS steps (one untraced call first builds its
-    device constants)."""
+    """Device launches and stream synchronisations per step, from
+    SEQ_TRACE_SWEEPS traced sweeps of SEQ_TRACE_STEPS steps each (one
+    untraced call first builds their device constants). Several sweeps:
+    the profiler can drop a few device records of a short window (4 of the
+    17 of one sweep through the hand kernel, on the H100), and once all
+    of them."""
     import dataclasses
 
     from particlesmc_tpu_torch.moves import kernel as K
 
     sweep = K.build_sweep_fn(dataclasses.replace(sim.config, sweepstep=SEQ_TRACE_STEPS), sim.chains.n_particles)
     sweep(mc, sim.pool_params)
-    prof = profile_block(lambda: sweep(mc, sim.pool_params))
-    prof["launches_per_step"] = prof["device_launches"] / SEQ_TRACE_STEPS
-    prof["syncs_per_step"] = prof["stream_syncs"] / SEQ_TRACE_STEPS
+
+    def sweeps():
+        m = mc
+        for _ in range(SEQ_TRACE_SWEEPS):
+            m = sweep(m, sim.pool_params)
+
+    prof = profile_block(sweeps)
+    steps = SEQ_TRACE_SWEEPS * SEQ_TRACE_STEPS
+    prof["launches_per_step"] = prof["device_launches"] / steps
+    prof["syncs_per_step"] = prof["stream_syncs"] / steps
     return prof
 
 
@@ -1211,22 +1246,126 @@ def seq_cpu_vs_card(device):
     return {"N": n, "chains": chains, "position_max_abs_err": err, "accepted": int(a.accepted.sum())}
 
 
+def seq_kernel_vs_plain(device, precision):
+    """The hand kernel of the sequential sweep (moves/seq_cuda.py) against
+    the plain step at large-2d-dense's shape (2D JBB, N = 1,000, 64 chains),
+    in `precision` ("mixed": float32 positions with a float64 ledger, the
+    main path's; or "float64"): one whole sweep from the same state on the
+    same injected draws through the kernel and through the plain step on the
+    card (build_sweep_fn's `sweep.plain`), with the same counters, positions
+    within 1e-4 (mixed) or 1e-9 and ledgers within 1e-5 or 1e-12 per
+    particle; the kernel's milliseconds per sweep (CUDA events) beside the
+    plain step's and beside its bound, the least time of the operations the
+    sweep needs (seq_needed_ops) at the peak of the position dtype."""
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import kernel as K
+    from particlesmc_tpu_torch.moves import seq_cuda
+
+    dt, ledger, pos_tol, ledger_tol = {
+        "mixed": (torch.float32, torch.float64, 1e-4, 1e-5),
+        "float64": (torch.float64, None, 1e-9, 1e-12),
+    }[precision]
+    n, d, rho, temp, model, fractions, _ = SEQ_SCENARIOS["large-2d-dense"]
+    chains = SEQ_CHAINS
+    pos, species = scenario_config(n, d, rho, fractions)
+    g = np.random.default_rng(4)
+    feed = {k: torch.tensor(v, device=device) for k, v in dict(
+        move=np.zeros((chains, n), np.int64), i=g.integers(0, n, (chains, n)),
+        normal=g.normal(0, 1, (chains, n, d)), u=g.uniform(1e-300, 1, (chains, n)),
+    ).items()}
+    feed = {k: v.to(dt) if v.is_floating_point() else v for k, v in feed.items()}
+    pool = (MB.displacement(SEQ_SIGMA),)
+    table = getattr(T, model)(dt, device)
+    st = initialize_energy(make_system(pos, species, rho, temp, dtype=dt, device=device), table,
+                           energy_dtype=ledger).repeat(chains)
+    config = K.KernelConfig(pool=pool, table=table, cell_spec=None)
+    assert K.takes_sweep_kernel(config, st)
+    sweep = K.build_sweep_fn(config, n)
+    params = MB.init_pool_params(pool, dt, device)
+    mc = K.init_mc_state(st, config, 0)
+    events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a = sweep(mc, params, feed)
+    events[0].record()
+    b = sweep.plain(mc, params, feed)
+    events[1].record()
+    events[1].synchronize()
+    plain_ms = events[0].elapsed_time(events[1])
+    assert torch.equal(a.attempted, b.attempted) and torch.equal(a.accepted, b.accepted), \
+        f"{precision}: the kernel's counters differ from the plain step's"
+    err = float((a.system.position - b.system.position).abs().max())
+    assert err <= pos_tol, f"{precision}: the kernel's positions differ from the plain step's by {err}"
+    gap = float((a.system.energy.double() - b.system.energy.double()).abs().max()) / n
+    assert gap <= ledger_tol, f"{precision}: the kernel's ledger differs from the plain step's by {gap} per particle"
+    args = (st.position, st.species, st.box, st.temperature, st.energy, seq_cuda.pack_table(table, dt),
+            torch.full((chains, 1), SEQ_SIGMA, dtype=dt, device=device),
+            feed["move"], feed["i"], feed["normal"], feed["u"])
+    kernel_ms = _time_ms(lambda: seq_cuda.disp_sweep(*args, kinds=(3,)), 5)  # smooth LJ
+    ops, in_range = seq_needed_ops(b.system, b.system.box.double(), args[5].double(), n)
+    bound = 1e3 * ops / PEAK_FLOPS[dt]
+    threads, smem, shared = seq_cuda.launch_plan(dt, d, n, args[5].shape[-1], 1)
+    return {"N": n, "chains": chains, "precision": precision, "position_max_abs_err": err,
+            "ledger_gap_per_particle": gap, "accepted": int(a.accepted.sum()), "kernel_ms": kernel_ms,
+            "plain_ms": plain_ms, "us_per_step": 1e3 * kernel_ms / n, "pair_terms": 2 * chains * n * (n - 1),
+            "in_range_share": in_range, "bound_ms": bound, "bound_by": "operations",
+            "roofline_share": bound / kernel_ms, "threads": threads, "smem_bytes": smem, "shared": shared}
+
+
+def seq_needed_ops(system, box, tab, steps):
+    """Operations one sweep of `steps` steps of every chain needs, counted on
+    `system`'s configuration: per step, for each of the N - 1 other
+    particles, two r^2 (3d - 1 each), two cutoff compares, the du subtract
+    and its accumulate, and the potential's body (body_ops) for each pair
+    within its cutoff, at the old and the new position (the share in range
+    taken as the configuration's). Also returns that share."""
+    B, n, d = system.position.shape
+    pos = system.position.double()
+    S = tab.shape[-1]
+    body, rcut2 = body_ops(tab).reshape(-1), tab[4].reshape(-1)
+    in_range = torch.zeros((), dtype=torch.float64, device=pos.device)
+    body_sum = torch.zeros((), dtype=torch.float64, device=pos.device)
+    for k0 in range(0, n, 100):
+        dx = pos[:, None, :, :] - pos[:, k0:k0 + 100, None, :]
+        dx = dx - torch.round(dx / box[:, None, None, :]) * box[:, None, None, :]
+        r2 = (dx * dx).sum(-1)
+        pair = system.species[:, k0:k0 + 100, None] * S + system.species[:, None, :]
+        self_pair = torch.arange(k0, min(n, k0 + 100), device=pos.device)[:, None] == torch.arange(n, device=pos.device)
+        near = (r2 <= rcut2[pair]) & ~self_pair
+        in_range += near.sum()
+        body_sum += (body[pair] * near).sum()
+    pairs = B * n * (n - 1)
+    ops = 2 * B * steps * ((n - 1) * (2 * (3 * d - 1) + 2 + 2) / 2 + float(body_sum) / (B * n))
+    return ops, float(in_range) / pairs
+
+
 def phase_library_sequential(device):
     """The sequential kernel through the library at two scenarios of the
-    reference benchmark matrix: large-2d-dense (dense ΔE) and
-    larger-ss-3d-cell (cell list through force_cells); then the card against
-    the CPU on the same draws."""
+    reference benchmark matrix: large-2d-dense (dense ΔE, through the hand
+    kernel of the sequential sweep) and larger-ss-3d-cell (cell list through
+    force_cells, the plain step), each with the kernel's launches and
+    chain-steps over its warm-up and timed sweeps (`seq_cuda`: two launches
+    of 64 x 1,000 chain-steps, and none); then the card against the CPU on
+    the same draws, and the hand kernel against the plain step at
+    large-2d-dense's shape in mixed precision and in float64."""
+    from particlesmc_tpu_torch import tracing
     from particlesmc_tpu_torch.moves import base as MB
     from particlesmc_tpu_torch.moves import kernel as K
 
+    counted = ("seq_cuda.launches", "seq_cuda.steps")
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in SEQ_SCENARIOS:
             n = SEQ_SCENARIOS[name][0]
             sim = sequential_sim(device, name, SEQ_CHAINS, (MB.displacement(SEQ_SIGMA),), tmp)
             launches0 = launch_count()
+            before = {c: tracing.counters().get(c, 0) for c in counted}
             elapsed, mc = seq_timed(sim)
+            seq = {c: tracing.counters().get(c, 0) - before[c] for c in counted}
             assert launch_count() == launches0
+            want = [2, 2 * SEQ_CHAINS * n] if sim.neighbour_mode == "dense" else [0, 0]
+            assert [seq[c] for c in counted] == want, f"{name}: seq_cuda counted {seq}, expected {want}"
             K.check_state(mc)  # no cell overflow
             acceptance = move_acceptance(mc)[0]
             assert 0.0 < acceptance < 1.0, f"{name}: acceptance {acceptance}"
@@ -1239,10 +1378,11 @@ def phase_library_sequential(device):
                 "cap": None if spec is None else spec.cap, "precision": "mixed", "sigma": SEQ_SIGMA,
                 "ms_per_sweep": 1e3 * elapsed, "us_per_step": 1e6 * elapsed / n,
                 "us_per_step_per_chain": 1e6 * elapsed / (n * SEQ_CHAINS), "sweeps_per_s": SEQ_CHAINS / elapsed,
-                "acceptance": acceptance, "ledger_gap_per_particle": gap,
-                "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+                "acceptance": acceptance, "ledger_gap_per_particle": gap, "seq_cuda": seq,
+                "traced_steps": SEQ_TRACE_SWEEPS * SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
             }
     out["cpu_vs_card"] = seq_cpu_vs_card(device)
+    out["kernel_vs_plain"] = {p: seq_kernel_vs_plain(device, p) for p in ("mixed", "float64")}
     emit({"phase": "library_sequential", **out})
     return out
 
@@ -1275,7 +1415,7 @@ def phase_library_sequential_swap(device):
         "ms_per_sweep": 1e3 * elapsed, "us_per_step": 1e6 * elapsed / n, "sweeps_per_s": SEQ_SWAP_CHAINS / elapsed,
         "warmup_steps": SEQ_TRACE_STEPS,
         "acceptance": move_acceptance(mc), "accepted": accepted, "ledger_gap_per_particle": gap,
-        "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+        "traced_steps": SEQ_TRACE_SWEEPS * SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
     })
 
 
@@ -1338,7 +1478,7 @@ def phase_library_sequential_molecular(device):
         "flip_rounds": mc.flip_rounds, "warmup_steps": SEQ_TRACE_STEPS, "ms_per_sweep": 1e3 * elapsed,
         "us_per_step": 1e6 * elapsed / n,
         "sweeps_per_s": SEQ_MOL_CHAINS / elapsed, "acceptance": acceptance, "ledger_max_rel_gap": rel,
-        "traced_steps": SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
+        "traced_steps": SEQ_TRACE_SWEEPS * SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
     })
 
 
@@ -2332,7 +2472,7 @@ def main() -> int:
     kb, bias_shapes = timed(phase_bias_kernel_vs_plain, *bias_run)
     timed(phase_cli_smart, device)
     timed(phase_library_molecular, device)
-    timed(phase_library_sequential, device)
+    seq = timed(phase_library_sequential, device)
     timed(phase_library_sequential_swap, device)
     timed(phase_library_sequential_molecular, device)
     temper_launches, kt, temper_shapes = timed(phase_cli_tempering, device)
@@ -2386,6 +2526,24 @@ def main() -> int:
         "library_trim_f64": {"launches": trim_launches, **{k: ktr["f64"][k] for k in keep}},
         "library_spatial_f64": {"launches": spatial_launches, **{k: ksp[k] for k in keep}},
         "library_chains_f32": {"launches": chains_launches, **{k: kch[k] for k in keep}},
+        "card": smi,
+    }, {
+        "name": "seq_disp_sweep",
+        "route": "cuda",
+        "source": "particlesmc_tpu_torch/csrc/seq_disp_sweep.cu",
+        "replaces": None,
+        "launches": seq["large-2d-dense"]["seq_cuda"]["seq_cuda.launches"],
+        "chain_steps": seq["large-2d-dense"]["seq_cuda"]["seq_cuda.steps"],
+        "max_abs_err": seq["kernel_vs_plain"]["mixed"]["position_max_abs_err"],
+        "ms": seq["kernel_vs_plain"]["mixed"]["kernel_ms"],
+        "plain_ms": seq["kernel_vs_plain"]["mixed"]["plain_ms"],
+        "bound_ms": seq["kernel_vs_plain"]["mixed"]["bound_ms"],
+        "bound_by": seq["kernel_vs_plain"]["mixed"]["bound_by"],
+        "library_ms": seq["large-2d-dense"]["ms_per_sweep"],
+        "design": "block per chain for the whole sweep, chain in shared memory, one barrier per step",
+        "dtype": "mixed",
+        "f64": {k: seq["kernel_vs_plain"]["float64"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                                   "position_max_abs_err", "ledger_gap_per_particle")},
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

@@ -102,26 +102,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
 
 
-def build_library() -> Path:
-    """Compile csrc/cb_disp_substep.cu into a shared library keyed on a hash
-    of the source and flags; an existing build is reused. The nvcc log
-    (ptxas register and shared-memory report) is kept beside it."""
-    src = SOURCE.read_bytes()
+def build_library(source: Path = SOURCE) -> Path:
+    """Compile a CUDA source of this package (csrc/cb_disp_substep.cu by
+    default) into a shared library lib<stem>.so keyed on a hash of the source,
+    the headers of csrc/ it may include, and the flags; an existing build is
+    reused. The nvcc log (ptxas register and shared-memory report) is kept
+    beside it."""
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(source.parent.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_ROOT / key
-    lib = out_dir / "libcb_disp_substep.so"
+    lib = out_dir / f"lib{source.stem}.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libcb_disp_substep.{os.getpid()}.tmp"
+    tmp = out_dir / f"lib{source.stem}.{os.getpid()}.tmp"
     with tracing.phase("setup.kernel_build"):
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             capture_output=True, text=True,
         )
     (out_dir / "build.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed building {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
 

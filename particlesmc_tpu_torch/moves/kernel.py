@@ -43,6 +43,12 @@ shard (`MCState.chains`) makes every draw at the global batch's shape and
 keeps its rows, so that it draws what the unsharded run draws for its
 chains; fed-in draws are given at that shape too.
 
+On the card, a sweep whose pool is all Gaussian displacements with the dense
+ΔE on an atomic system (`takes_sweep_kernel`) runs its steps as one launch
+of the hand kernel moves/seq_cuda.py, on the same draws and with the same
+arithmetic; every other sweep, and every sweep on the CPU, takes the step
+below, a few dozen launches per step.
+
 MoleculeFlip resamples (m, a, b) until the two sites' species differ. The
 port draws R rounds per step and takes each chain's first valid one; R is
 chosen at `init_mc_state` from the molecules' species (which flips only
@@ -71,6 +77,7 @@ from ..core.energy import (
 )
 from ..core.state import ChainBlock, SystemState, draw_batch, own_rows, shared_box
 from ..models.tables import PairTable, kinds_present
+from . import seq_cuda
 from .base import Move
 
 # The engine's rule: below this particle count the sequential kernel runs
@@ -142,6 +149,21 @@ class KernelConfig:
     mol_start: Optional[tuple] = None  # molecule layout, shared by the chains
     mol_len: Optional[tuple] = None
     sweepstep: Optional[int] = None  # steps per sweep; default N
+
+
+def takes_sweep_kernel(config: KernelConfig, system: SystemState) -> bool:
+    """Whether a sweep of `system` runs as one launch of the hand kernel
+    (moves/seq_cuda.py): CUDA tensors, every move of the pool a Gaussian
+    displacement, the dense ΔE, an atomic system (no bonds, no molecule
+    layout), d 2 or 3, and float32, mixed (float32 with a float64 ledger) or
+    float64. Every other sweep takes the plain step."""
+    pos = system.position
+    return (
+        pos.device.type == "cuda" and config.cell_spec is None and config.mol_start is None
+        and system.bonds is None and system.dim in (2, 3)
+        and pos.dtype in (torch.float32, torch.float64) and system.energy.dtype in (pos.dtype, torch.float64)
+        and all(mv.action == "displacement" and mv.policy == "gaussian" for mv in config.pool)
+    )
 
 
 def flip_rounds(species, mol_start, mol_len) -> int:
@@ -611,6 +633,7 @@ class _Kernel:
         p = np.asarray([mv.probability for mv in pool], np.float64)
         self.cum = np.cumsum(p / p.sum())[:-1].tolist()  # move = #{cum_k <= u}
         self._mol = {}
+        self._packed = {}
 
     def draw_keys(self):
         keys = {"move", "u"}
@@ -731,6 +754,24 @@ class _Kernel:
                     NB.move_particle_(w.cell, i, NB.cell_index(new_pos_i, st.box, self.spec))
             return accept
 
+    def sweep_kernel(self, mc: MCState, pool_params, draws):
+        """A whole sweep of every chain as one launch of the hand kernel
+        (takes_sweep_kernel): (position, energy, accepts [B, S]). Sigma per
+        move is read from `pool_params` on the device, detached; the packed
+        table is built once per device and dtype."""
+        st = mc.system
+        pos = st.position
+        dt = pos.dtype
+        key = (pos.device, dt)
+        if key not in self._packed:
+            self._packed[key] = seq_cuda.pack_table(self.config.table, dt).to(pos.device)
+        with tracing.span("seq.sweep_kernel"):
+            sigma = torch.stack([p["sigma"].detach().to(dt).expand(st.n_chains) for p in pool_params], dim=1)
+            return seq_cuda.disp_sweep(
+                pos, st.species, st.box, st.temperature, st.energy, self._packed[key], sigma, draws["move"],
+                draws["i"], draws["normal"].to(dt), draws["u"].to(dt), kinds=self.kinds,
+            )
+
     def delta_e(self, w: _Work, prop: Proposal, x_i):
         """(e1, e2) [B] of the step's proposals on the working state."""
         st = w.system
@@ -795,11 +836,25 @@ def build_sweep_fn(config: KernelConfig, n: int) -> Callable:
     """Returns `sweep(mc, pool_params, draws=None) -> MCState`: `sweepstep`
     (default n) steps of every chain. `draws` feeds in the sweep's
     randomness (module docstring); the state's generator supplies it
-    otherwise."""
+    otherwise. `sweep.plain` has the same signature and runs the sweep
+    through the plain step whatever the input: the reference that the hand
+    kernel is held to on the card."""
     k = _Kernel(config, n)
     steps = int(config.sweepstep or n)
 
+    def counted(mc, move, accepts):
+        """(attempted, accepted) after the sweep's moves and accepts."""
+        return mc.attempted.scatter_add(1, move, torch.ones_like(move)), mc.accepted.scatter_add(1, move, accepts)
+
     def sweep(mc: MCState, pool_params, draws=None) -> MCState:
+        if not takes_sweep_kernel(config, mc.system):
+            return plain(mc, pool_params, draws)
+        draws, _ = k.prepare(mc, steps, draws)
+        position, energy, accepts = k.sweep_kernel(mc, pool_params, draws)
+        att, acc = counted(mc, draws["move"], accepts)
+        return mc.replace(system=mc.system.replace(position=position, energy=energy), attempted=att, accepted=acc)
+
+    def plain(mc: MCState, pool_params, draws=None) -> MCState:
         draws, counts = k.prepare(mc, steps, draws)
         w = _Work(mc)
         B = mc.system.n_chains
@@ -811,11 +866,9 @@ def build_sweep_fn(config: KernelConfig, n: int) -> Callable:
             if k.has_flip and "flip" not in dr:
                 dr["flip"] = k.flip_draws(mc, 1)[:, 0]
             accepts[:, s] = k.step(w, pool_params, dr, counts)
-        move = draws["move"]
-        att = mc.attempted.scatter_add(1, move, torch.ones_like(move))
-        acc = mc.accepted.scatter_add(1, move, accepts)
-        return w.state(mc, att, acc)
+        return w.state(mc, *counted(mc, draws["move"], accepts))
 
+    sweep.plain = plain
     return sweep
 
 

@@ -25,9 +25,9 @@ capture. Names used by the port (PERF.md §3 lists what reads each):
     cb.block  cb.rebin  cb.host_copy  cb.draws  cb.substep  cb.extract  cb.trim
     cb.kernel  cb.submove.<kind>  cb.write_back  cb.counters  cb.finish
     spatial.halo
-    seq.draws  seq.step  seq.propose  seq.delta_e  seq.accept
-    seq.cell_update
-    counters: cb_cuda.launches
+    seq.draws  seq.sweep_kernel  seq.step  seq.propose  seq.delta_e
+    seq.accept  seq.cell_update
+    counters: cb_cuda.launches  seq_cuda.launches  seq_cuda.steps
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from particlesmc_tpu_torch.moves import base as MB
 from particlesmc_tpu_torch.moves import cb_cuda
 from particlesmc_tpu_torch.moves import checkerboard as CB
 from particlesmc_tpu_torch.moves import kernel as K
+from particlesmc_tpu_torch.moves import seq_cuda
 
 from .test_torch_inputs import ka2d, lattice, make_inputs, mixed_table, trimer_melt
 
@@ -250,6 +251,101 @@ def test_sequential_sweep_cuda_matches_cpu(cuda, case):
     np.testing.assert_allclose(s.energy.cpu().numpy(), e.cpu().numpy(), rtol=1e-9)
 
 
+# (d, model, precision, chains, N, sweepstep) of the sequential sweeps that
+# run through the hand kernel (moves/seq_cuda.py): d 2 and 3; float64, mixed
+# and float32; LJ, smooth LJ and a table with every kind; 1, 3 and 64 chains;
+# N 43, 216 and 1,000, with sweepstep != N; the last case's positions do not
+# fit in shared memory (float64 3D, N = 10,000), so the kernel reads them
+# through L2
+SEQ_KERNEL_CASES = [
+    (2, "JBB", "float64", 3, 43, 60),
+    (3, "KobAndersen", "float64", 1, 216, 216),
+    (3, "mixed", "float64", 3, 216, 100),
+    (2, "JBB", "mixed", 64, 1000, 200),
+    (3, "JBB", "mixed", 3, 1000, 300),
+    (2, "KobAndersen", "mixed", 64, 216, 100),
+    (3, "KobAndersen", "float32", 3, 216, 150),
+    (2, "mixed", "float32", 1, 43, 43),
+    (3, "KobAndersen", "float64", 2, 10000, 64),
+]
+SEQ_PRECISIONS = {"float64": (torch.float64, None), "mixed": (torch.float32, torch.float64),
+                  "float32": (torch.float32, None)}
+
+
+def _seq_kernel_state(d, model, precision, chains, n, dev):
+    """`chains` chains of a jittered lattice at density 0.9 (1.2 at N =
+    10,000), each with its own box (the positions scaled with it) and
+    temperature; a pool of two displacements with different sigma."""
+    dt, ledger = SEQ_PRECISIONS[precision]
+    rho = 1.2 if n > 1000 else 0.9
+    pos, sp = lattice(n, d, rho, seed=n + d)
+    if model == "mixed":
+        sp = sp + (np.arange(n) % 3 == 0)  # three species: every kind and a kind-0 pair
+        table = mixed_table(dt, dev)
+    else:
+        table = getattr(TT, model)(dt, dev)
+    scale = 1.0 + 0.02 * np.arange(chains)
+    box = ((n / rho) ** (1 / d) * scale)[:, None] * np.ones((chains, d))
+    st = make_system(pos[None] * scale[:, None, None], np.broadcast_to(sp, (chains, n)), rho,
+                     np.linspace(0.7, 1.3, chains), box=box, dtype=dt, device=dev)
+    st = initialize_energy(st, table, energy_dtype=ledger)
+    pool = (MB.displacement(0.12, 0.6), MB.displacement(0.04, 0.4))
+    return st, table, pool
+
+
+@pytest.mark.parametrize("d,model,precision,chains,n,sweepstep", SEQ_KERNEL_CASES)
+def test_sequential_sweep_kernel_matches_cpu(cuda, d, model, precision, chains, n, sweepstep):
+    """A displacement-only dense sweep on the card runs as one launch of the
+    hand kernel and matches the CPU's plain step on the same injected draws:
+    same counters, positions within 1e-9 (float64) or 1e-4 (float32), the
+    ledger against the CPU's and against total_energy_dense; then a sweep on
+    the state's own generator launches the kernel once more and issues no
+    host synchronisation."""
+    dt = SEQ_PRECISIONS[precision][0]
+    g = np.random.default_rng(n + chains)
+    draws = dict(move=g.integers(0, 2, (chains, sweepstep)), i=g.integers(0, n, (chains, sweepstep)),
+                 normal=g.normal(0, 1, (chains, sweepstep, d)), u=g.uniform(1e-30, 1, (chains, sweepstep)))
+    out, counted = {}, {}
+    for dev in (torch.device("cpu"), cuda):
+        st, table, pool = _seq_kernel_state(d, model, precision, chains, n, dev)
+        config = K.KernelConfig(pool=pool, table=table, cell_spec=None, sweepstep=sweepstep)
+        assert K.takes_sweep_kernel(config, st) == (dev.type == "cuda")
+        sweep = K.build_sweep_fn(config, n)
+        params = MB.init_pool_params(pool, dt, dev)
+        before = tracing.counters()
+        out[dev.type] = sweep(K.init_mc_state(st, config, 0), params,
+                              {k: torch.tensor(v, dtype=dt if v.dtype == np.float64 else None, device=dev)
+                               for k, v in draws.items()})
+        after = tracing.counters()
+        counted[dev.type] = [after.get(c, 0) - before.get(c, 0) for c in ("seq_cuda.launches", "seq_cuda.steps")]
+    assert counted == {"cpu": [0, 0], "cuda": [1, chains * sweepstep]}
+    if n > 1000:
+        assert not seq_cuda.launch_plan(dt, d, n, table.n_species, 2)[2], "expected the L2 path"
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(a.attempted, b.attempted.cpu()) and torch.equal(a.accepted, b.accepted.cpu())
+    assert int(a.accepted.sum()) > 0 and int((a.attempted - a.accepted).sum()) > 0
+    atol = 1e-9 if dt == torch.float64 else 1e-4
+    np.testing.assert_allclose(b.system.position.cpu().numpy(), a.system.position.numpy(), rtol=0, atol=atol)
+
+    def ledger_gap(s):
+        """Largest |ledger - float64 dense recompute| per particle."""
+        e = total_energy_dense(s.position.double(), s.species, s.box.double(), table.astype(torch.float64))
+        return float((s.energy.double() - e).abs().max()) / n
+
+    tol = 1e-12 if dt == torch.float64 else 1e-5
+    assert float((a.system.energy - b.system.energy.cpu()).abs().max()) / n <= tol
+    assert ledger_gap(b.system) <= tol
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = sweep(b, params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tracing.counters()["seq_cuda.launches"] == after["seq_cuda.launches"] + 1
+    assert int((c.accepted - b.accepted).sum()) > 0
+    assert ledger_gap(c.system) <= tol
+
+
 def test_replica_exchange_cuda_matches_cpu(cuda):
     """A replica-exchange pass on a card state (with its cell list) against
     the same pass on the CPU, on the same uniforms; then a pass from the
@@ -313,11 +409,13 @@ def test_pgmc_estimate_cuda_matches_cpu(cuda, tmp_path):
     assert torch.isfinite(card.pool_params[1]["theta1"]).item()
 
 
-@pytest.mark.parametrize("backend", ["sequential", "checkerboard"])
+@pytest.mark.parametrize("backend", ["sequential", "checkerboard", "sequential-displacement"])
 def test_resume_bitwise_cuda(cuda, tmp_path, backend):
     """On the card, a run resumed from its mid-run StoreCheckpoints file ends
     bitwise where the straight-through run ends (positions, species,
-    energies, counters); the card's checkpoint does not load on the CPU."""
+    energies, counters); the card's checkpoint does not load on the CPU.
+    `sequential-displacement` (a pool of two displacements) runs its sweeps
+    through the hand kernel."""
     from particlesmc_tpu_torch.engine.simulation import Simulation
     from particlesmc_tpu_torch.io import checkpoint as CKPT
     from particlesmc_tpu_torch.io.loader import Chains
@@ -327,7 +425,10 @@ def test_resume_bitwise_cuda(cuda, tmp_path, backend):
     pos, sp = lattice(n, 2, 0.5, seed=3)
     table = TT.KobAndersen(torch.float64, cuda)
     pool = (MB.displacement(0.1, 0.7), MB.discrete_swap(0, 1, 0.3))
+    if backend == "sequential-displacement":
+        pool = (MB.displacement(0.1, 0.7), MB.displacement(0.03, 0.3))
     metro = dict(algorithm="Metropolis", pool=pool, seed=3, parallel_moves=cb)
+    launches = tracing.counters().get("seq_cuda.launches", 0)
 
     def sim(resume=None):
         st = initialize_energy(make_system(pos, sp, 0.5, 1.2, device=cuda), table).repeat(2)
@@ -343,6 +444,8 @@ def test_resume_bitwise_cuda(cuda, tmp_path, backend):
         assert torch.equal(getattr(a.mc.system, f), getattr(b.mc.system, f)), f
     assert torch.equal(a.mc.attempted, b.mc.attempted) and torch.equal(a.mc.accepted, b.mc.accepted)
     assert a.mc.system.position.is_cuda and int(a.mc.accepted.sum()) > 0
+    launched = tracing.counters().get("seq_cuda.launches", 0) - launches
+    assert launched == (12 if backend == "sequential-displacement" else 0)  # 8 sweeps, then 4 resumed
     with pytest.raises(ValueError, match="cuda generator state .* cpu device"):
         if cb:
             CKPT.load_checkpoint_checkerboard(ckpt, a.cb_spec, device="cpu")

@@ -21,12 +21,13 @@ from particlesmc_tpu.core.state import make_system as j_make_system
 from particlesmc_tpu.models import tables as JT
 from particlesmc_tpu.moves import base as JMB
 from particlesmc_tpu.moves import kernel as JK
-from particlesmc_tpu_torch import convert
+from particlesmc_tpu_torch import convert, tracing
 from particlesmc_tpu_torch.core import energy as TE
 from particlesmc_tpu_torch.core import neighbours as TNB
 from particlesmc_tpu_torch.models import tables as TT
 from particlesmc_tpu_torch.moves import base as TMB
 from particlesmc_tpu_torch.moves import kernel as TK
+from particlesmc_tpu_torch.moves import seq_cuda
 
 torch.set_num_threads(1)
 
@@ -367,3 +368,101 @@ def test_mixed_precision_ledger_and_draw_checks():
     with pytest.raises(ValueError, match="steps"):
         sweep(mc, TMB.init_pool_params(pool, torch.float32, "cpu"),
               {"move": z[:, :5], "u": z[:, :5].float(), "i": z[:, :5], "normal": torch.zeros((2, 5, 2))})
+
+
+# (pool, system, the hand kernel takes a card run): Gaussian displacements
+# with the dense ΔE on an atomic system take moves/seq_cuda.py's kernel, in
+# float64, mixed and float32; a swap, an EnergyBias swap, a SmartGaussian
+# displacement, the cell list, a bonded system and a molecular flip keep the
+# plain step, and so does a float64 system with a float32 ledger
+SELECTION_CASES = {
+    "displacement": ("disp", "f64", True),
+    "two-displacements": ("disp2", "mixed", True),
+    "float32": ("disp", "f32", True),
+    "swap": ("swap", "f64", False),
+    "energy-bias": ("bias", "f64", False),
+    "smart": ("smart", "f64", False),
+    "cells": ("disp", "cells", False),
+    "bonds": ("disp", "bonds", False),
+    "flip": ("flip", "molecular", False),
+    "float32-ledger": ("disp", "f64-f32-ledger", False),
+}
+
+
+def _selection_case(pools_name, system_name):
+    pool = {
+        "disp": (TMB.displacement(0.1),),
+        "disp2": (TMB.displacement(0.1, 0.6), TMB.displacement(0.04, 0.4)),
+        "swap": (TMB.displacement(0.1, 0.5), TMB.discrete_swap(0, 1, 0.5)),
+        "bias": (TMB.displacement(0.1, 0.5), TMB.discrete_swap(0, 1, 0.5, policy="energy_bias", theta1=0.3)),
+        "smart": (TMB.displacement_smart(0.1),),
+        "flip": (TMB.displacement(0.05, 0.5), TMB.molecule_flip(0.5)),
+    }[pools_name]
+    if system_name in ("bonds", "molecular"):
+        from .test_torch_sequential_molecular import trimer_chains
+
+        system, table, ms, ml = trimer_chains(n_mol=8, seeds=(0, 1))
+        mol = {} if system_name == "bonds" else {"mol_start": ms, "mol_len": ml}
+        return pool, system, TK.KernelConfig(pool=pool, table=table, cell_spec=None, sweepstep=16, **mol)
+    system, table = _port_chains(N3 if system_name == "cells" else 64, 3, 0.5, 2.0, "KobAndersen", seeds=(4, 5))
+    pdt = torch.float32 if system_name in ("f32", "mixed") else torch.float64
+    ldt = torch.float32 if system_name in ("f32", "f64-f32-ledger") else torch.float64
+    system = system.replace(position=system.position.to(pdt), box=system.box.to(pdt),
+                            temperature=system.temperature.to(pdt), density=system.density.to(pdt),
+                            energy=system.energy.to(ldt))
+    return pool, system, _config(pool, table.astype(pdt), system, system_name == "cells", sweepstep=16)
+
+
+def _as_on_card(system):
+    """A stand-in for `system` with its tensors on the card, as
+    takes_sweep_kernel reads it (devices, dtypes, dimension and bonds)."""
+    from types import SimpleNamespace
+
+    card = torch.device("cuda")
+    return SimpleNamespace(
+        position=SimpleNamespace(device=card, dtype=system.position.dtype),
+        energy=SimpleNamespace(device=card, dtype=system.energy.dtype), dim=system.dim, bonds=system.bonds,
+    )
+
+
+@pytest.mark.parametrize("case", sorted(SELECTION_CASES))
+def test_sweep_kernel_selection(case, monkeypatch):
+    """Which sequential sweeps run through the hand kernel on the card
+    (takes_sweep_kernel): pools of Gaussian displacements with the dense ΔE
+    on an atomic system, in float64, mixed or float32. On the CPU every
+    sweep takes the plain step and the seq_cuda counters stay as they were.
+    Where the card would take the kernel: on the CPU the sweep equals
+    `sweep.plain` bitwise, on fed-in draws equal to the generator's; the
+    kernel's wrapper refuses CPU tensors (no fallback); and the launch gets
+    each move's sigma per chain, in the position dtype, and the table's
+    kinds."""
+    pools_name, system_name, on_card = SELECTION_CASES[case]
+    pool, system, config = _selection_case(pools_name, system_name)
+    assert TK.takes_sweep_kernel(config, _as_on_card(system)) == on_card
+    assert not TK.takes_sweep_kernel(config, system)
+    if pools_name == "smart":
+        with pytest.raises(ValueError, match="checkerboard backend only"):
+            TK.build_sweep_fn(config, system.n_particles)
+        return
+    params = TMB.init_pool_params(pool, system.position.dtype, "cpu")
+    mc = TK.init_mc_state(system, config, 5)
+    before = {c: tracing.counters().get(c, 0) for c in ("seq_cuda.launches", "seq_cuda.steps")}
+    sweep = TK.build_sweep_fn(config, system.n_particles)
+    out = sweep(mc, params)
+    assert {c: tracing.counters().get(c, 0) for c in before} == before
+    assert int(out.accepted.sum()) > 0
+    if not on_card:
+        return
+    k = TK._Kernel(config, system.n_particles)
+    draws, _ = k.prepare(TK.init_mc_state(system, config, 5), 16, None)
+    for ran in (sweep(mc, params, draws), sweep.plain(mc, params, draws)):
+        assert torch.equal(ran.system.position, out.system.position) and torch.equal(ran.system.energy, out.system.energy)
+        assert torch.equal(ran.accepted, out.accepted) and torch.equal(ran.attempted, out.attempted)
+    with pytest.raises(ValueError, match="CUDA card"):
+        k.sweep_kernel(mc, params, draws)
+    launched = []
+    monkeypatch.setattr(seq_cuda, "disp_sweep", lambda *args, **kw: launched.append((args, kw)))
+    k.sweep_kernel(mc, params, draws)
+    (args, kw), = launched
+    want = torch.tensor([dict(mv.params)["sigma"] for mv in pool], dtype=system.position.dtype).expand(system.n_chains, -1)
+    assert torch.equal(args[6], want) and kw == {"kinds": k.kinds}
