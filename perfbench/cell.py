@@ -67,8 +67,9 @@ class Watch:
       minimum-image displacements summed between consecutive host returns,
       so that no box crossing is lost at any pace (msd_per_s). As a callback
       it records each chain's mean squared displacement so far.
-    - For the sampled chains, a snapshot at each return: positions, ledger,
-      attempted and accepted moves (what `judge` compares)."""
+    - For the sampled chains, a snapshot at each return: positions,
+      species, ledger, and attempted and accepted moves per move of the
+      pool, [k, M] (what `judge` compares)."""
 
     __name__ = "msd"
 
@@ -86,8 +87,8 @@ class Watch:
     def snapshot(self, mc) -> dict:
         s = self.sample
         return dict(
-            position=mc.system.position[s].cpu(), ledger=mc.system.energy[s].double().cpu(),
-            attempted=mc.attempted[s].sum(dim=-1).cpu(), accepted=mc.accepted[s].sum(dim=-1).cpu(),
+            position=mc.system.position[s].cpu(), species=mc.system.species[s].cpu(),
+            ledger=mc.system.energy[s].double().cpu(), attempted=mc.attempted[s].cpu(), accepted=mc.accepted[s].cpu(),
         )
 
     def update(self, mc):
@@ -174,34 +175,43 @@ def composition(species, S: int):
     )
 
 
-def ledger_drift(potential, snaps: list, species, box) -> float:
+def ledger_drift(potential, snaps: list, box) -> float:
     """The root mean square, over the chains and the stretches between
     consecutive snapshots, of the gap between the ledger's change and the
     float64 reference's change of the total energy, per square root of the
     chain's attempted moves in the stretch (the ledger's rounding and the
     energy changes' errors add up as a random walk over its moves; each
     stretch is one independent step of that walk). Snapshots: dicts of
-    position [k, N, d], ledger [k] and attempted [k]."""
+    position [k, N, d], species [k, N], ledger [k] and attempted [k, M];
+    each snapshot's energy is taken with its own species, which swaps
+    change."""
     dev = box.device
-    ref = [total_energy(sn["position"].to(dev), species, box, potential).cpu() for sn in snaps]
+    ref = [total_energy(sn["position"].to(dev), sn["species"].to(dev), box, potential).cpu() for sn in snaps]
     gaps = []
     for (a, ra), (b, rb) in zip(zip(snaps[:-1], ref[:-1]), zip(snaps[1:], ref[1:])):
-        moves = (b["attempted"] - a["attempted"]).double()
+        moves = (b["attempted"] - a["attempted"]).sum(dim=-1).double()
         gap = (b["ledger"] - a["ledger"]) - (rb - ra)
         gaps.append((gap / moves.clamp_min(1.0).sqrt())[moves > 0])
     g = torch.cat(gaps)
     return float(g.square().mean().sqrt()) if g.numel() else 0.0
 
 
-def frozen_excess(first: dict, last: dict, n: int) -> float:
+def displacements(trf: dict) -> list:
+    """The pool's moves that displace a particle (a swap or a flip moves
+    none), by their index in the program's counters."""
+    return [m for m, mv in enumerate(trf["pool"]) if mv["move"].startswith("displacement")]
+
+
+def frozen_excess(first: dict, last: dict, n: int, moving: list) -> float:
     """The largest excess, over the chains, of the share of particles whose
     position did not change over the window above the share that the
-    chain's own counters leave unmoved: with a attempted moves at acceptance
-    p, a particle is picked about a / N times and stays put with probability
-    about exp(-a p / N), the chain's accepted moves over N. A step that keeps
-    a chain's positions while its counters advance reads about 1."""
-    att = (last["attempted"] - first["attempted"]).double()
-    acc = (last["accepted"] - first["accepted"]).double()
+    chain's own counters leave unmoved: with a attempted displacements at
+    acceptance p, a particle is picked about a / N times and stays put with
+    probability about exp(-a p / N), the chain's accepted displacements
+    (the counters of the moves `moving`) over N. A step that keeps a chain's
+    positions while its counters advance reads about 1."""
+    att = (last["attempted"] - first["attempted"])[:, moving].sum(dim=-1).double()
+    acc = (last["accepted"] - first["accepted"])[:, moving].sum(dim=-1).double()
     expected = torch.exp(-acc / n)  # a p / N = accepted moves / N
     same = (first["position"] == last["position"]).all(dim=-1).double().mean(dim=-1)
     return float((same - torch.where(att > 0, expected, torch.ones_like(expected))).max())
@@ -210,26 +220,77 @@ def frozen_excess(first: dict, last: dict, n: int) -> float:
 def reference_sampler(name: str):
     """The plain reference sampler module reference/<name>.py, found by the
     traffic's `reference_sampler`: acceptance(cfg, trf, position, species,
-    box, steps, generator) -> (attempted, accepted). A pool that the named
-    sampler does not run brings a sampler of its own."""
+    box, steps, generator) -> (attempted, accepted), summed over the chains,
+    as numbers (a pool of one move) or one per move of the pool. A pool that
+    the named sampler does not run brings a sampler of its own."""
     return spec.load_module(Path(__file__).resolve().parent / "reference" / f"{name}.py", f"perfbench_reference_{name}")
 
 
-def acceptance_gap(cfg: dict, trf: dict, first: dict, last: dict, species, box, seed: int) -> tuple:
-    """The gap between the sampled chains' acceptance over the window and
-    the plain float64 reference sampler's acceptance from their end state
-    over the traffic's `reference_steps` steps: the program's proposal,
-    energy change and Metropolis test, all at once. Returns (gap,
-    program's, reference's)."""
-    moves = (last["attempted"] - first["attempted"]).sum()
-    prog = float((last["accepted"] - first["accepted"]).sum()) / max(1.0, float(moves))
+def acceptance_gap(cfg: dict, trf: dict, first: dict, last: dict, origin: dict, steps: int, box, seed: int) -> tuple:
+    """The gap, for each move of the pool, between the sampled chains'
+    acceptance of the move from snapshot `first` to `last` and the plain
+    float64 reference sampler's over `steps` steps from the state of
+    snapshot `origin`: the program's proposal, energy change and
+    Metropolis-Hastings test of each move, all at once. A move that either
+    side never attempted reads 1: the pool gives it a share, so a program
+    that stops drawing it fails. Returns ([gap per move], [program's
+    acceptance per move], [reference's per move])."""
+    att = (last["attempted"] - first["attempted"]).sum(dim=0).double()
+    acc = (last["accepted"] - first["accepted"]).sum(dim=0).double()
+    prog = (acc / att.clamp_min(1.0)).tolist()
     g = torch.Generator(device=box.device)
     g.manual_seed(seed)
-    att, acc = reference_sampler(trf["reference_sampler"]).acceptance(
-        cfg, trf, last["position"].to(box.device), species, box, int(trf["reference_steps"]), g,
+    ref_att, ref_acc = reference_sampler(trf["reference_sampler"]).acceptance(
+        cfg, trf, origin["position"].to(box.device), origin["species"].to(box.device), box, int(steps), g,
     )
-    ref = acc / att
-    return abs(prog - ref), prog, ref
+    ref_att, ref_acc = np.atleast_1d(ref_att), np.atleast_1d(ref_acc)
+    ref = [float(c) / max(1, int(a)) for a, c in zip(ref_att, ref_acc)]
+    gaps = [abs(p - r) if a > 0 and b > 0 else 1.0 for p, r, a, b in zip(prog, ref, att.tolist(), ref_att)]
+    return gaps, prog, ref
+
+
+def largest(gaps: list, moves: list) -> float:
+    """The largest gap of the moves `moves` (0 where there are none)."""
+    return max((gaps[m] for m in moves), default=0.0)
+
+
+def share_z(trf: dict, first: dict, last: dict) -> float:
+    """The largest gap, over the pool's moves, between how often the
+    sampled chains attempted the move from snapshot `first` to `last` and
+    how often the pool's probabilities say, in standard deviations of that
+    binomial count (each chain draws its move at every step). A program
+    that draws a move at another share than the pool states, or never,
+    reads tens; a sound run a few at most."""
+    att = (last["attempted"] - first["attempted"]).sum(dim=0).double()
+    p = torch.tensor([float(mv["args"].get("probability", 1.0)) for mv in trf["pool"]], dtype=torch.float64)
+    p = p / p.sum()
+    n = att.sum()
+    sd = (n * p * (1 - p)).sqrt()
+    z = torch.where(sd > 0, (att - n * p).abs() / sd.clamp_min(1e-300), torch.zeros_like(sd))
+    return float(z.max())
+
+
+def acceptance_span(trf: dict, snaps: list) -> tuple:
+    """(first, last, origin, steps) of the acceptance comparison:
+    - where a snapshot past the first lies within `reference_steps` moves
+      of the window's start, the program from the start to the last such
+      snapshot and the reference from the window's start state over as
+      many steps: where acceptance drifts over the run (a species
+      arrangement that relaxes by swaps), only the same stretch of the run
+      compares like with like;
+    - else the program over the whole window and the reference over
+      `reference_steps` steps from the window's end state."""
+    cap = int(trf["reference_steps"])
+    near = [sn for sn in snaps[1:] if 0 < moves_between(snaps[0], sn) <= cap]
+    if near:
+        return snaps[0], near[-1], snaps[0], moves_between(snaps[0], near[-1])
+    return snaps[0], snaps[-1], snaps[-1], cap
+
+
+def moves_between(a: dict, b: dict) -> int:
+    """The most attempted moves of a sampled chain from snapshot a to b (on
+    the sequential kernel every chain makes one per step)."""
+    return int((b["attempted"] - a["attempted"]).sum(dim=-1).max())
 
 
 def prepare(cell: spec.Cell, seed: int, seconds: float, device, plant=None) -> SimpleNamespace:
@@ -338,7 +399,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
             "nonfinite": int((~finite).sum()),
         }
         failed = int(skips.sum()) + checks_exact["nonfinite"] * blocks
-        species, box = end.system.species[sample].clone(), end.system.box[sample].clone()
+        box = end.system.box[sample].clone()
         chunk_s = np.diff(watch.times)
         acc = sim.counters()
         log(f"window: {steps} sweeps in {window_s:.3f} s (probe pace {p.pace:.3f} sweeps/s), "
@@ -359,7 +420,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
 
         # --- the check, after the window ----------------------------------
         t0 = time.perf_counter()
-        checks = judge(cfg, trf, snaps, species, box, p.seeds["reference"])
+        checks = judge(cfg, trf, snaps, box, p.seeds["reference"])
         log(f"reference check: {time.perf_counter() - t0:.3f} s over {k} chains, {len(snaps)} snapshots")
         checks.update({name: (v, 0) for name, v in checks_exact.items()})
         result.update(
@@ -371,23 +432,40 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t
         shutil.rmtree(p.tmp, ignore_errors=True)
 
 
-def judge(cfg: dict, trf: dict, snaps: list, species, box, seed: int) -> dict:
+def judge(cfg: dict, trf: dict, snaps: list, box, seed: int) -> dict:
     """The numbers compared against the plain reference, each with its
-    limit from the traffic file: the ledger's drift, the acceptance's gap
-    and the frozen excess, over the sampled chains' snapshots (at most
-    MAX_STRETCHES stretches: consecutive ones merged, evenly)."""
+    limit from the traffic file, over the sampled chains' snapshots (at
+    most MAX_STRETCHES stretches for the drift: consecutive ones merged,
+    evenly): the ledger's drift, the largest acceptance gap of the pool's
+    displacements, the frozen excess and, where the pool has moves that
+    exchange species (swaps), the largest acceptance gap of those; each
+    kind's gaps are held apart, so that a fault of the rarer, noisier
+    swaps is not judged by the displacements' limit nor the reverse. A pool
+    of several moves also holds the share of attempts each move got over
+    the window against its probability (`move_share_z`)."""
     limits = trf["limits"]
+    first, last, origin, steps = acceptance_span(trf, snaps)
+    gaps, prog, ref = acceptance_gap(cfg, trf, first, last, origin, steps, box, seed)
+    made, where = moves_between(first, last), "start" if origin is first else "end"
+    for m, (mv, a, b) in enumerate(zip(trf["pool"], prog, ref)):
+        log(f"acceptance of the sampled chains, move {m} ({mv['move']}): program {a:.6f} over {made} moves "
+            f"of each chain from the window's start, reference {b:.6f} over {steps} steps from its {where} state")
     if len(snaps) > MAX_STRETCHES + 1:
         keep = np.unique(np.linspace(0, len(snaps) - 1, MAX_STRETCHES + 1).round().astype(int))
         snaps = [snaps[i] for i in keep]
-    gap, prog, ref = acceptance_gap(cfg, trf, snaps[0], snaps[-1], species, box, seed)
-    log(f"acceptance of the sampled chains: program {prog:.6f} over the window, "
-        f"reference {ref:.6f} over {int(trf['reference_steps'])} steps from the window's end state")
-    return {
-        "ledger_drift": (ledger_drift(cfg["potential"], snaps, species, box), float(limits["ledger_drift"])),
-        "acceptance_gap": (gap, float(limits["acceptance_gap"])),
-        "frozen_excess": (frozen_excess(snaps[0], snaps[-1], int(cfg["system"]["n"])), float(limits["frozen_excess"])),
+    moving = displacements(trf)
+    exchanging = [m for m in range(len(trf["pool"])) if m not in moving]
+    checks = {
+        "ledger_drift": (ledger_drift(cfg["potential"], snaps, box), float(limits["ledger_drift"])),
+        "acceptance_gap": (largest(gaps, moving), float(limits["acceptance_gap"])),
+        "frozen_excess": (frozen_excess(snaps[0], snaps[-1], int(cfg["system"]["n"]), moving),
+                          float(limits["frozen_excess"])),
     }
+    if exchanging:
+        checks["species_acceptance_gap"] = (largest(gaps, exchanging), float(limits["species_acceptance_gap"]))
+    if len(trf["pool"]) > 1:
+        checks["move_share_z"] = (share_z(trf, snaps[0], snaps[-1]), float(limits["move_share_z"]))
+    return checks
 
 
 def traced_slice(cell, system, table, pool, seed, path, device):

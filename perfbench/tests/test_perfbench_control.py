@@ -33,8 +33,8 @@ def test_control_fails_the_limit(name, n):
     for compute in (torch.bfloat16, torch.float32):
         gen = torch.Generator().manual_seed(3)
         x, l0, l1, att, _ = metropolis(pos, g["species"], box, temp, c.config["potential"], sigma, 400, gen, compute)
-        snaps = [dict(position=pos, ledger=l0, attempted=torch.zeros_like(att)),
-                 dict(position=x, ledger=l1, attempted=att)]
-        drifts[compute] = CELL.ledger_drift(c.config["potential"], snaps, g["species"], box)
+        snaps = [dict(position=pos, species=g["species"], ledger=l0, attempted=torch.zeros_like(att)[:, None]),
+                 dict(position=x, species=g["species"], ledger=l1, attempted=att[:, None])]
+        drifts[compute] = CELL.ledger_drift(c.config["potential"], snaps, box)
     assert drifts[torch.bfloat16] > 10 * max(limits)
     assert drifts[torch.float32] < drifts[torch.bfloat16] / 1000

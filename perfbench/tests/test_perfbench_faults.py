@@ -11,7 +11,14 @@ chip, with the program's step broken underneath. Each fault has to turn
   accepts stay): the acceptance against the reference sampler's;
 - proposals twice as wide as the traffic states: the acceptance;
 - an answer altered where it is produced (a particle moved after the step
-  with no energy booked): the ledger's drift against the reference.
+  with no energy booked): the ledger's drift against the reference;
+- species altered where they are produced (two particles of different
+  species exchange them after the step with no energy booked): the
+  ledger's drift, which scores each snapshot with its own species;
+- on the swap cell, swaps never drawn (each swap draw made a
+  displacement): the swaps' acceptance gap, which reads 1 for a move never
+  attempted, and each move's share of the attempts; swaps drawn at half
+  their share: the share.
 
 One chip holds every cell, and no chain exchanges anything with another,
 so there is no exchange between chips to leave out.
@@ -41,7 +48,17 @@ def small(name: str) -> spec.Cell:
         c.config["sampler"]["list_parameters"].update(inner=4, rebin_every=2)
     else:
         c.config["system"]["n"] = 100
+    if name in SECONDS:  # enough swaps in the window for each move's acceptance
+        c.traffic.update(chains=32, reference_chains=32)
     return c
+
+
+# the window's seconds at the small size, where not 1
+SECONDS = {"jbb2d-n1000.seq-swap-b28": 4.0}
+
+
+def run_small(name: str) -> dict:
+    return CELL.run_cell(small(name), 12345, SECONDS.get(name, 1.0), False, CPU, time.perf_counter())
 
 
 def mixed(new, old, k: int):
@@ -68,6 +85,18 @@ def altered(state):
     return state.replace(system=sys_.replace(position=pos))
 
 
+def species_altered(state):
+    """Particle 0 of every chain and the first particle of another species
+    exchange their species after the step, no ΔE booked."""
+    sys_ = state.system
+    sp = sys_.species.clone()
+    rows = torch.arange(sp.shape[0], device=sp.device)
+    j = torch.argmax((sp != sp[:, :1]).int(), dim=1)
+    a, b = sp[:, 0].clone(), sp[rows, j].clone()
+    sp[:, 0], sp[rows, j] = b, a
+    return state.replace(system=sys_.replace(species=sp))
+
+
 FAULTS = {
     "unchanged": lambda step, mc, *a: mc,
     "half_batch": lambda step, mc, *a: mixed(step(mc, *a), mc, mc.system.n_chains // 2),
@@ -75,13 +104,14 @@ FAULTS = {
     "reject_all": lambda step, mc, *a: step(mc, *a).replace(system=mc.system, accepted=mc.accepted),
     "sigma_2x": None,  # the window's pool, widened (break_program)
     "altered": lambda step, mc, *a: altered(step(mc, *a)),
+    "species_altered": lambda step, mc, *a: species_altered(step(mc, *a)),
 }
 
 
 def break_program(monkeypatch, fault):
     """Break the step of the window's Simulation (the one with outputs);
     set-up's burn-in and probe run the program as it is."""
-    from particlesmc_tpu_torch.moves import base, checkerboard, kernel
+    from particlesmc_tpu_torch.moves import checkerboard, kernel
 
     def wrap(make):
         def build(*args, **kw):
@@ -94,7 +124,10 @@ def break_program(monkeypatch, fault):
 
     def simulation(state, table, pool, *args, outputs=(), **kw):
         if outputs and FAULTS[fault] is None:
-            pool = tuple(base.displacement(sigma=2.0 * dict(m.params)["sigma"]) for m in pool)
+            pool = tuple(
+                dataclasses.replace(m, params=(("sigma", 2.0 * dict(m.params)["sigma"]),))
+                if m.action == "displacement" else m for m in pool
+            )
         elif outputs:
             monkeypatch.setattr(checkerboard, "build_hyper_sweep_fn", wrap(checkerboard.build_hyper_sweep_fn))
             monkeypatch.setattr(kernel, "build_run_fn", wrap(kernel.build_run_fn))
@@ -103,13 +136,13 @@ def break_program(monkeypatch, fault):
     monkeypatch.setattr(CELL, "simulation", simulation)
 
 
-CELLS = ["ka3d-n10k.cb-b256", "jbb2d-n1000.seq-b64"]
+CELLS = ["ka3d-n10k.cb-b256", "jbb2d-n1000.seq-b64", "jbb2d-n1000.seq-swap-b28"]
 
 
 @pytest.fixture(scope="module")
 def sound():
     """The unbroken runs of each cell at the small size."""
-    return {name: CELL.run_cell(small(name), 12345, 1.0, False, CPU, time.perf_counter()) for name in CELLS}
+    return {name: run_small(name) for name in CELLS}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -121,11 +154,19 @@ def test_sound_run_counts_and_composition(sound, name):
     assert checks["frozen_excess"][0] < checks["frozen_excess"][1]
 
 
+def test_swap_cell_sound_run_is_correct(sound):
+    """Species change and composition stays: the swap cell's sound run
+    passes every limit of the full-size cell."""
+    out = sound["jbb2d-n1000.seq-swap-b28"]
+    assert out["correct"] is True, out["checks"]
+    assert out["checks"]["species_changed"][0] == 0
+
+
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 @pytest.mark.parametrize("name", CELLS)
 def test_fault_turns_correct_false(sound, monkeypatch, name, fault):
     break_program(monkeypatch, fault)
-    out = CELL.run_cell(small(name), 12345, 1.0, False, CPU, time.perf_counter())
+    out = run_small(name)
     assert out["correct"] is False
     checks = out["checks"]
     B = small(name).traffic["chains"]
@@ -142,6 +183,40 @@ def test_fault_turns_correct_false(sound, monkeypatch, name, fault):
     else:
         drift, limit = checks["ledger_drift"]
         assert drift > limit and drift > 100 * sound[name]["checks"]["ledger_drift"][0]
+
+
+def skew_choice(monkeypatch, every: int):
+    """In the window's Simulation, at every `every`-th step of a sweep's
+    draws, a draw of any move but the pool's first becomes the first."""
+    from particlesmc_tpu_torch.moves import kernel
+
+    real_draw, real_sim = kernel._Kernel.draw_sweep, CELL.simulation
+
+    def draw_sweep(self, mc, steps):
+        out = real_draw(self, mc, steps)
+        move = out["move"]
+        hit = (move > 0) & (torch.arange(move.shape[1]) % every == 0)
+        return dict(out, move=torch.where(hit, torch.zeros_like(move), move))
+
+    def simulation(*args, outputs=(), **kw):
+        if outputs:
+            monkeypatch.setattr(kernel._Kernel, "draw_sweep", draw_sweep)
+        return real_sim(*args, outputs=outputs, **kw)
+
+    monkeypatch.setattr(CELL, "simulation", simulation)
+
+
+@pytest.mark.parametrize("fault,every", [("swaps_never", 1), ("swaps_half", 2)])
+def test_move_choice_fault_turns_correct_false(sound, monkeypatch, fault, every):
+    name = "jbb2d-n1000.seq-swap-b28"
+    skew_choice(monkeypatch, every)
+    out = run_small(name)
+    assert out["correct"] is False
+    checks = out["checks"]
+    z, limit = checks["move_share_z"]
+    assert z > limit and z > 3 * sound[name]["checks"]["move_share_z"][0]
+    if fault == "swaps_never":
+        assert checks["species_acceptance_gap"][0] == 1.0
 
 
 @pytest.mark.parametrize("attempted,skips,bad", [
