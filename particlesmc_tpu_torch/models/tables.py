@@ -3,7 +3,8 @@ particlesmc_tpu/models/tables.py).
 
 A `PairTable` holds one [S, S] tensor per precomputed parameter, indexed by
 the species pair. The per-pair constructors are host-side float64 math that
-mirrors the reference parameterisations: BHHP, KobAndersen, JBB, and the
+mirrors the reference parameterisations: BHHP, KobAndersen, JBB, the binary
+LJ mixture of the reference's validation gate (BinaryLJMixture), and the
 molecular Trimer (Kremer-Grest pairs with FENE bonds, GeneralKG).
 """
 
@@ -301,6 +302,21 @@ def JBB(dtype=torch.float64, device=None) -> PairTable:
     return build_pair_table(entries, dtype, device)
 
 
+def BinaryLJMixture(dtype=torch.float64, device=None) -> PairTable:
+    """2-species LJ mixture of Rowley et al., "Monte Carlo Simulations of
+    Binary Lennard-Jones Mixtures" (doi:10.1023/A:1022614200488), as
+    examples/lj-mixture/run-validation.py runs it: the publication's
+    Lorentz-Berthelot-fitted eps and sigma, one cutoff of 4 sigma_1 for
+    every pair, unshifted."""
+    eps = [[1.0, 1.1523], [1.1523, 1.3702]]
+    sig = [[1.0, 1.0339], [1.0339, 1.0640]]
+    entries = [
+        [lennard_jones(eps[i][j], sig[i][j], rcut=4.0, shift_potential=False) for j in range(2)]
+        for i in range(2)
+    ]
+    return build_pair_table(entries, dtype, device)
+
+
 def Trimer(dtype=torch.float64, device=None) -> PairTable:
     """3-species Kremer-Grest trimer matrix."""
     sig = [[0.9, 0.95, 1.0], [0.95, 1.0, 1.05], [1.0, 1.05, 1.1]]
@@ -317,6 +333,7 @@ MODEL_REGISTRY = {
     "BHHP": BHHP,
     "KobAndersen": KobAndersen,
     "JBB": JBB,
+    "BinaryLJMixture": BinaryLJMixture,
     "Trimer": Trimer,
     "GeneralKG": Trimer,  # molecule.xyz's metadata names the trimer system model:GeneralKG
 }

@@ -882,8 +882,10 @@ class _Molecular:
 
 
 # span (tracing.span) around each sub-move that is not the kernel's, by
-# kind, and around the candidate compaction of a substep
+# kind, and around the candidate compaction of a substep; counter
+# (tracing.count) of those sub-moves' slots run, by kind
 SUBMOVE_RANGE = "cb.submove."
+SUBMOVE_CALLS = "cb.submove_calls."
 TRIM_RANGE = "cb.trim"
 
 
@@ -1009,6 +1011,7 @@ class ColourSubsteps:
         check_pool(self.pool, self.molecular)
         self.n_moves = len(self.pool)
         self.submove_spans = [SUBMOVE_RANGE + submove_kind(mv) for mv in self.pool]
+        self.submove_calls = [SUBMOVE_CALLS + submove_kind(mv) for mv in self.pool]
         self.species_live = any(mv.action in ("swap", "flip") for mv in self.pool)
         self.kinds = kinds_present(table)  # once here: it reads the table on the host
         rows = _slot_schedule(self.pool, self.C, self.inner).tolist()
@@ -1198,6 +1201,7 @@ class ColourSubsteps:
             temperature = ctx.temperature
             if mv.action != "swap":  # floor(u * occ) is uniform over [0, occ)
                 pick = ctx.slot_iota == torch.floor(up_c[:, k] * occ.to(dt)).long()[..., None]
+            tracing.count(self.submove_calls[m])
             with tracing.span(self.submove_spans[m]):
                 if mv.action == "displacement" and mv.policy == "smart":
                     new_pos, booked, accept = _disp_submove_smart(
