@@ -42,7 +42,11 @@ its device launches and stream synchronisations per step:
   on the card, on the same draws (the kernel's and the plain step's
   milliseconds beside the kernel's bound);
 - library_sequential_swap: large-2d-dense, 8 chains, one timed sweep of
-  Displacement + DoubleUniform + EnergyBias swaps after a 16-step warm-up;
+  Displacement + DoubleUniform + EnergyBias swaps after a 16-step warm-up,
+  through the hand kernel's swap variant (two launches); then one sweep at
+  jbb2d-n1000.seq-swap-b28's shape (28 chains) in mixed precision and one in
+  float64 through the kernel against the plain step on the card, on the same
+  draws (the kernel's and the plain step's milliseconds beside the bound);
 - library_sequential_molecular: molecule.npz x 4 chains, one timed sweep of
   Displacement + MoleculeFlip after a 16-step warm-up;
 - cli_tempering: examples/movie on a 4-rung temperature ladder through the
@@ -208,19 +212,26 @@ def _ptxas_by_kernel(log, pattern, name):
 
 
 def phase_build():
-    """Both kernels' builds: seconds, and ptxas's registers and spills of
-    each instantiation (cb_disp_substep <dtype, d, variant>; seq_disp_sweep
-    <positions, ledger, d, variant, chain in shared memory>)."""
+    """The kernels' builds: seconds, and ptxas's registers and spills of
+    each instantiation (cb_disp_substep <dtype, d, variant>; the sequential
+    sweep <positions, ledger, d, variant, chain in shared memory, swaps,
+    EnergyBias>, its displacement-only library and its swap library)."""
     from particlesmc_tpu_torch.moves import cb_cuda, seq_cuda
 
     dts = {"f": "f32", "d": "f64"}
+    seq = r"seq_disp_sweep_kernelI([fd])([fd])Li(\d)ELi(\d)ELb(\d)ELb(\d)ELb(\d)E"
+
+    def seq_name(m):
+        flags = {"00": "", "10": " swaps", "11": " swaps+bias"}[m.group(6) + m.group(7)]
+        return (f"{dts[m.group(1)]}/{dts[m.group(2)]} d={m.group(3)} {VARIANT_NAMES[int(m.group(4))]} "
+                f"{'shared' if m.group(5) == '1' else 'L2'}{flags}")
+
     out = {"phase": "build"}
     for key, source, pattern, name in (
         ("cb_disp_substep", cb_cuda.SOURCE, r"disp_substep_kernelI([fd])Li(\d)ELi(\d)E",
          lambda m: f"{dts[m.group(1)]} d={m.group(2)} {VARIANT_NAMES[int(m.group(3))]}"),
-        ("seq_disp_sweep", seq_cuda.SOURCE, r"seq_disp_sweep_kernelI([fd])([fd])Li(\d)ELi(\d)ELb(\d)E",
-         lambda m: f"{dts[m.group(1)]}/{dts[m.group(2)]} d={m.group(3)} {VARIANT_NAMES[int(m.group(4))]} "
-                   f"{'shared' if m.group(5) == '1' else 'L2'}"),
+        ("seq_disp_sweep", seq_cuda.SOURCE, seq, seq_name),
+        ("seq_swap_sweep", seq_cuda.SWAP_SOURCE, seq, seq_name),
     ):
         cached = any(cb_cuda.BUILD_ROOT.glob(f"*/lib{source.stem}.so"))
         t0 = time.perf_counter()
@@ -1107,6 +1118,7 @@ SEQ_SCENARIOS = {
     "larger-ss-3d-cell": (3000, 3, 0.5, 1.0, "BHHP", (0.5, 0.5), True),
 }
 SEQ_SWAP_CHAINS = 8
+SEQ_SWAP_CELL_CHAINS = 28  # perfbench's jbb2d-n1000.seq-swap-b28
 SEQ_MOL_CHAINS, SEQ_MOL_SIGMA = 4, 0.06
 
 
@@ -1302,7 +1314,7 @@ def seq_kernel_vs_plain(device, precision):
     args = (st.position, st.species, st.box, st.temperature, st.energy, seq_cuda.pack_table(table, dt),
             torch.full((chains, 1), SEQ_SIGMA, dtype=dt, device=device),
             feed["move"], feed["i"], feed["normal"], feed["u"])
-    kernel_ms = _time_ms(lambda: seq_cuda.disp_sweep(*args, kinds=(3,)), 5)  # smooth LJ
+    kernel_ms = _time_ms(lambda: seq_cuda.sweep(*args, kinds=(3,)), 5)  # smooth LJ
     ops, in_range = seq_needed_ops(b.system, b.system.box.double(), args[5].double(), n)
     bound = 1e3 * ops / PEAK_FLOPS[dt]
     threads, smem, shared = seq_cuda.launch_plan(dt, d, n, args[5].shape[-1], 1)
@@ -1313,13 +1325,15 @@ def seq_kernel_vs_plain(device, precision):
             "roofline_share": bound / kernel_ms, "threads": threads, "smem_bytes": smem, "shared": shared}
 
 
-def seq_needed_ops(system, box, tab, steps):
+def seq_needed_ops(system, box, tab, steps, per_pair=False):
     """Operations one sweep of `steps` steps of every chain needs, counted on
     `system`'s configuration: per step, for each of the N - 1 other
     particles, two r^2 (3d - 1 each), two cutoff compares, the du subtract
     and its accumulate, and the potential's body (body_ops) for each pair
     within its cutoff, at the old and the new position (the share in range
-    taken as the configuration's). Also returns that share."""
+    taken as the configuration's). Also returns that share; with `per_pair`
+    returns (that share, the body operations per particle over its pairs in
+    range) instead."""
     B, n, d = system.position.shape
     pos = system.position.double()
     S = tab.shape[-1]
@@ -1336,6 +1350,8 @@ def seq_needed_ops(system, box, tab, steps):
         in_range += near.sum()
         body_sum += (body[pair] * near).sum()
     pairs = B * n * (n - 1)
+    if per_pair:
+        return float(in_range) / pairs, float(body_sum) / (B * n)
     ops = 2 * B * steps * ((n - 1) * (2 * (3 * d - 1) + 2 + 2) / 2 + float(body_sum) / (B * n))
     return ops, float(in_range) / pairs
 
@@ -1387,36 +1403,153 @@ def phase_library_sequential(device):
     return out
 
 
-def phase_library_sequential_swap(device):
-    """large-2d-dense with 8 chains, one sweep of Displacement (0.8) +
-    DiscreteSwap 1<->3 DoubleUniform (0.1) + DiscreteSwap 2<->3 EnergyBias
-    at examples/pgmc-ka2d's learned theta (0.1)."""
+def seq_swap_pool():
+    """Displacement (0.8) + DiscreteSwap 1<->3 DoubleUniform (0.1) +
+    DiscreteSwap 2<->3 EnergyBias at examples/pgmc-ka2d's learned theta
+    (0.1): perfbench's seq-swap-b28 pool."""
     from particlesmc_tpu_torch.moves import base as MB
 
     (t1, t2) = KA2D_THETA[(1, 2)]
-    pool = (
+    return (
         MB.displacement(SEQ_SIGMA, 0.8),
         MB.discrete_swap(0, 2, 0.1),
         MB.discrete_swap(1, 2, 0.1, policy="energy_bias", theta1=t1, theta2=t2),
     )
+
+
+def seq_swap_needed_ops(system, box, tab, move, pool):
+    """Operations one sweep of a swap pool needs, counted on `system`'s
+    configuration (seq_needed_ops's per-pair costs and share in range): a
+    displacement as there; a swap two r^2 per other particle, four cutoff
+    compares and four terms' subtract and accumulate, and the potential's
+    body at each row's old and new species; an EnergyBias swap also its two
+    picks and three passes over the chain's energies (6 N); with EnergyBias
+    the launch's dense start pass of per-particle energies."""
+    B, n, d = system.position.shape
+    _, body = seq_needed_ops(system, box, tab, 1, per_pair=True)
+    kinds = [(mv.action, mv.policy) for mv in pool]
+    counts = [int((move == m).sum()) for m in range(len(pool))]
+    ops = 0.0
+    for (action, policy), c in zip(kinds, counts):
+        if action == "displacement":
+            ops += c * ((n - 1) * (2 * (3 * d - 1) + 4) + 2 * body)
+        else:
+            ops += c * ((n - 2) * (2 * (3 * d - 1) + 8) + 4 * body + (6 * n if policy == "energy_bias" else 0))
+    if ("swap", "energy_bias") in kinds:
+        ops += B * n * ((n - 1) * (3 * d - 1 + 2) + body)
+    return ops
+
+
+def seq_swap_kernel_vs_plain(device, precision):
+    """The hand kernel's swap variant against the plain step at
+    jbb2d-n1000.seq-swap-b28's shape (2D JBB, N = 1,000, 28 chains, its
+    pool), in `precision` ("mixed" or "float64"): one whole sweep from the
+    same state on the same injected draws through the kernel and through
+    the plain step on the card, with the same counters and species,
+    positions within 1e-4 (mixed) or 1e-9 and ledgers within 1e-5 or 1e-12
+    per particle; the kernel's milliseconds per sweep (CUDA events) beside
+    the plain step's and beside its bound, the least time of the operations
+    the sweep needs (seq_swap_needed_ops) at the peak of the position
+    dtype."""
+    from particlesmc_tpu_torch import tracing
+    from particlesmc_tpu_torch.core.energy import initialize_energy
+    from particlesmc_tpu_torch.core.state import make_system
+    from particlesmc_tpu_torch.models import tables as T
+    from particlesmc_tpu_torch.moves import base as MB
+    from particlesmc_tpu_torch.moves import kernel as K
+    from particlesmc_tpu_torch.moves import seq_cuda
+
+    dt, ledger, pos_tol, ledger_tol = {
+        "mixed": (torch.float32, torch.float64, 1e-4, 1e-5),
+        "float64": (torch.float64, None, 1e-9, 1e-12),
+    }[precision]
+    n, d, rho, temp, model, fractions, _ = SEQ_SCENARIOS["large-2d-dense"]
+    chains, pool = SEQ_SWAP_CELL_CHAINS, seq_swap_pool()
+    pos, species = scenario_config(n, d, rho, fractions)
+    g = np.random.default_rng(5)
+    p = np.array([mv.probability for mv in pool])
+    feed = dict(
+        move=g.choice(len(pool), size=(chains, n), p=p / p.sum()), i=g.integers(0, n, (chains, n)),
+        normal=g.normal(0, 1, (chains, n, d)), r1=g.uniform(0, 1, (chains, n)), r2=g.uniform(0, 1, (chains, n)),
+        gumbel=-np.log(-np.log(g.uniform(1e-300, 1, (chains, n, 2, n)))), u=g.uniform(1e-300, 1, (chains, n)),
+    )
+    feed = {k: torch.tensor(v, dtype=dt if k in ("normal", "gumbel", "u") else None, device=device)
+            for k, v in feed.items()}
+    table = getattr(T, model)(dt, device)
+    st = initialize_energy(make_system(pos, species, rho, temp, dtype=dt, device=device), table,
+                           energy_dtype=ledger).repeat(chains)
+    config = K.KernelConfig(pool=pool, table=table, cell_spec=None)
+    assert K.takes_sweep_kernel(config, st)
+    sweep = K.build_sweep_fn(config, n)
+    params = MB.init_pool_params(pool, dt, device)
+    mc = K.init_mc_state(st, config, 0)
+    launches = tracing.counters().get("seq_cuda.swap_launches", 0)
+    a = sweep(mc, params, feed)
+    assert tracing.counters().get("seq_cuda.swap_launches", 0) == launches + 1
+    events = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    events[0].record()
+    b = sweep.plain(mc, params, feed)
+    events[1].record()
+    events[1].synchronize()
+    plain_ms = events[0].elapsed_time(events[1])
+    assert torch.equal(a.attempted, b.attempted) and torch.equal(a.accepted, b.accepted), \
+        f"{precision}: the kernel's counters differ from the plain step's"
+    assert torch.equal(a.system.species, b.system.species), f"{precision}: the kernel's species differ"
+    err = float((a.system.position - b.system.position).abs().max())
+    assert err <= pos_tol, f"{precision}: the kernel's positions differ from the plain step's by {err}"
+    gap = float((a.system.energy.double() - b.system.energy.double()).abs().max()) / n
+    assert gap <= ledger_tol, f"{precision}: the kernel's ledger differs from the plain step's by {gap} per particle"
+    dense = ledger_gap(a, table)
+    assert dense <= ledger_tol, f"{precision}: the kernel's ledger differs from the dense recompute by {dense}"
+    kernel_ms = _time_ms(lambda: sweep(mc, params, feed), 5)
+    tab = seq_cuda.pack_table(table, dt)
+    ops = seq_swap_needed_ops(st, st.box.double(), tab.double(), feed["move"], pool)
+    bound = 1e3 * ops / PEAK_FLOPS[dt]
+    threads, smem, shared = seq_cuda.launch_plan(dt, d, n, tab.shape[-1], len(pool), ledger=st.energy.dtype,
+                                                 swaps=True, bias=True)
+    return {"N": n, "chains": chains, "precision": precision, "position_max_abs_err": err,
+            "ledger_gap_per_particle": gap, "ledger_dense_gap_per_particle": dense,
+            "accepted": a.accepted.sum(dim=0).tolist(), "attempted": a.attempted.sum(dim=0).tolist(),
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "us_per_step": 1e3 * kernel_ms / n, "bound_ms": bound,
+            "bound_by": "operations", "roofline_share": bound / kernel_ms, "threads": threads, "smem_bytes": smem,
+            "shared": shared}
+
+
+def phase_library_sequential_swap(device):
+    """large-2d-dense with 8 chains, one sweep of seq_swap_pool() through
+    the hand kernel's swap variant after a 16-step warm-up (one launch
+    each); then the kernel against the plain step at seq-swap-b28's shape
+    in mixed precision and in float64."""
+    from particlesmc_tpu_torch import tracing
+
+    pool = seq_swap_pool()
+    (t1, t2) = KA2D_THETA[(1, 2)]
     with tempfile.TemporaryDirectory() as tmp:
         sim = sequential_sim(device, "large-2d-dense", SEQ_SWAP_CHAINS, pool, tmp)
+    n = sim.chains.n_particles
     counts0 = species_counts(sim.mc.system.species, 3)
+    counted = ("seq_cuda.launches", "seq_cuda.swap_launches", "seq_cuda.steps")
+    before = {c: tracing.counters().get(c, 0) for c in counted}
     elapsed, mc = seq_timed(sim, SEQ_TRACE_STEPS)
+    seq = {c: tracing.counters().get(c, 0) - before[c] for c in counted}
+    want = [2, 2, SEQ_SWAP_CHAINS * (SEQ_TRACE_STEPS + n)]
+    assert [seq[c] for c in counted] == want, f"seq_cuda counted {seq}, expected {want}"
     assert torch.equal(species_counts(mc.system.species, 3), counts0), "a swap changed a chain's composition"
     gap = ledger_gap(mc, sim.chains.table)
     assert gap <= 1e-5, f"ledger differs from the dense recompute by {gap} per particle"
     accepted = mc.accepted.sum(dim=0).tolist()
     assert all(a >= 1 for a in accepted[:2]), f"a move was never accepted: {accepted}"
-    n = sim.chains.n_particles
-    emit({
+    out = {
         "phase": "library_sequential_swap", "config": "large-2d-dense (2D JBB, rho 1.19207, T 0.8)", "N": n,
         "chains": SEQ_SWAP_CHAINS, "precision": "mixed", "theta_2_3": [t1, t2],
         "ms_per_sweep": 1e3 * elapsed, "us_per_step": 1e6 * elapsed / n, "sweeps_per_s": SEQ_SWAP_CHAINS / elapsed,
-        "warmup_steps": SEQ_TRACE_STEPS,
+        "warmup_steps": SEQ_TRACE_STEPS, "seq_cuda": seq,
         "acceptance": move_acceptance(mc), "accepted": accepted, "ledger_gap_per_particle": gap,
         "traced_steps": SEQ_TRACE_SWEEPS * SEQ_TRACE_STEPS, "profiled": trace_steps(sim, mc),
-    })
+        "kernel_vs_plain": {p: seq_swap_kernel_vs_plain(device, p) for p in ("mixed", "float64")},
+    }
+    emit(out)
+    return out
 
 
 def molecular_sim(device, chains, tmp):
@@ -2473,7 +2606,7 @@ def main() -> int:
     timed(phase_cli_smart, device)
     timed(phase_library_molecular, device)
     seq = timed(phase_library_sequential, device)
-    timed(phase_library_sequential_swap, device)
+    seq_swap = timed(phase_library_sequential_swap, device)
     timed(phase_library_sequential_molecular, device)
     temper_launches, kt, temper_shapes = timed(phase_cli_tempering, device)
     pgmc_launches, kp, pgmc_shapes = timed(phase_library_pgmc, device)
@@ -2544,6 +2677,12 @@ def main() -> int:
         "dtype": "mixed",
         "f64": {k: seq["kernel_vs_plain"]["float64"][k] for k in ("kernel_ms", "plain_ms", "bound_ms",
                                                                    "position_max_abs_err", "ledger_gap_per_particle")},
+        "swap_variant": {
+            "launches": seq_swap["seq_cuda"]["seq_cuda.swap_launches"],
+            **{p: {k: seq_swap["kernel_vs_plain"][p][k] for k in (
+                "chains", "kernel_ms", "plain_ms", "bound_ms", "position_max_abs_err", "ledger_gap_per_particle")}
+               for p in ("mixed", "float64")},
+        },
         "card": smi,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}})

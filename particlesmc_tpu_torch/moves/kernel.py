@@ -38,16 +38,23 @@ the JAX package the same numbers:
 - u [B, S]: the acceptance uniform.
 
 Otherwise they come from the state's `torch.Generator`: one sweep's small
-draws in a few launches at its start, the Gumbel noise per step. A chain
-shard (`MCState.chains`) makes every draw at the global batch's shape and
-keeps its rows, so that it draws what the unsharded run draws for its
-chains; fed-in draws are given at that shape too.
+draws in a few launches at its start, then the Gumbel noise, for the whole
+sweep where [B, S, 2, N] fits in _GUMBEL_BYTES, else in pieces of as many
+steps as fit (`gumbel_steps`), each drawn as its piece begins. A chain shard
+(`MCState.chains`) makes every draw at the global batch's shape and keeps its
+rows, so that it draws what the unsharded run draws for its chains; fed-in
+draws are given at that shape too.
 
-On the card, a sweep whose pool is all Gaussian displacements with the dense
-ΔE on an atomic system (`takes_sweep_kernel`) runs its steps as one launch
-of the hand kernel moves/seq_cuda.py, on the same draws and with the same
-arithmetic; every other sweep, and every sweep on the CPU, takes the step
-below, a few dozen launches per step.
+On the card, a sweep whose pool is Gaussian displacements, DoubleUniform swaps
+and EnergyBias swaps with the dense ΔE on an atomic system
+(`takes_sweep_kernel`) runs its steps as one launch of the hand kernel
+moves/seq_cuda.py (one per piece of Gumbel noise past the budget), on the
+same draws and with the same arithmetic; it keeps each chain's per-particle
+energies on chip for EnergyBias, so that no step costs more than O(N). Every
+other sweep, and every sweep on the CPU, takes the step below, a few dozen
+launches per step (~656 with both swaps); there EnergyBias computes the dense
+per-particle energies twice per step, and every proposal kind of the pool is
+evaluated for every chain and merged by move with torch.where.
 
 MoleculeFlip resamples (m, a, b) until the two sites' species differ. The
 port draws R rounds per step and takes each chain's first valid one; R is
@@ -90,6 +97,13 @@ DENSE_DELTA_MAX = 32768
 # and the most candidates (chains x steps x R) a sweep draws at its start
 _FLIP_MISS = 1e-12
 _FLIP_SWEEP_DRAWS = 1 << 22
+
+# the most bytes of EnergyBias Gumbel noise a sweep draws at once (256 MiB,
+# 0.3% of an H100's memory): [28, 1000, 2, 1000] float32 is 224 MB, one draw
+_GUMBEL_BYTES = 1 << 28
+
+# the moves the hand kernel of the sequential sweep takes: (action, policy)
+_KERNEL_MOVES = frozenset(seq_cuda.MOVE_KINDS)
 
 
 class Proposal(NamedTuple):
@@ -152,18 +166,27 @@ class KernelConfig:
 
 
 def takes_sweep_kernel(config: KernelConfig, system: SystemState) -> bool:
-    """Whether a sweep of `system` runs as one launch of the hand kernel
+    """Whether a sweep of `system` runs through the hand kernel
     (moves/seq_cuda.py): CUDA tensors, every move of the pool a Gaussian
-    displacement, the dense ΔE, an atomic system (no bonds, no molecule
-    layout), d 2 or 3, and float32, mixed (float32 with a float64 ledger) or
-    float64. Every other sweep takes the plain step."""
+    displacement, a DoubleUniform swap or an EnergyBias swap, the dense ΔE,
+    an atomic system (no bonds, no molecule layout), d 2 or 3, and float32,
+    mixed (float32 with a float64 ledger) or float64. Every other sweep
+    (SmartGaussian, MoleculeFlip, the cell list, bonds) takes the plain step."""
     pos = system.position
     return (
         pos.device.type == "cuda" and config.cell_spec is None and config.mol_start is None
         and system.bonds is None and system.dim in (2, 3)
         and pos.dtype in (torch.float32, torch.float64) and system.energy.dtype in (pos.dtype, torch.float64)
-        and all(mv.action == "displacement" and mv.policy == "gaussian" for mv in config.pool)
+        and all((mv.action, mv.policy) in _KERNEL_MOVES for mv in config.pool)
     )
+
+
+def gumbel_steps(chains: int, steps: int, n: int, itemsize: int) -> int:
+    """Steps per draw of a sweep's EnergyBias Gumbel noise [chains, steps, 2,
+    n] of `itemsize`-byte floats: the whole sweep where it fits in
+    _GUMBEL_BYTES, else as many steps as fit, at least one. On the card each
+    draw is one launch of the hand kernel."""
+    return max(1, min(int(steps), _GUMBEL_BYTES // (chains * 2 * n * itemsize)))
 
 
 def flip_rounds(species, mol_start, mol_len) -> int:
@@ -630,10 +653,11 @@ class _Kernel:
         self.has_uniform = any(mv.action == "swap" and mv.policy == "double_uniform" for mv in pool)
         self.has_bias = any(mv.action == "swap" and mv.policy == "energy_bias" for mv in pool)
         self.has_flip = any(mv.action == "flip" for mv in pool)
+        self.has_swap = self.has_uniform or self.has_bias
         p = np.asarray([mv.probability for mv in pool], np.float64)
         self.cum = np.cumsum(p / p.sum())[:-1].tolist()  # move = #{cum_k <= u}
         self._mol = {}
-        self._packed = {}
+        self._packed = {}  # per (device, dtype): the packed table and the move table
 
     def draw_keys(self):
         keys = {"move", "u"}
@@ -662,9 +686,18 @@ class _Kernel:
         particle's cell candidates."""
         return chain_energies(self.config, self.kinds, w.system.replace(position=position, species=species), w.cell)
 
+    def move_index(self, u):
+        """Each uniform's pool move, #{cum_k <= u} (cum the pool's cumulative
+        shares)."""
+        move = torch.zeros_like(u, dtype=torch.int64)
+        for c in self.cum:
+            move += (u >= c).long()
+        return move
+
     def draw_sweep(self, mc: MCState, steps: int):
-        """One sweep's draws from the state's generator (the Gumbel noise is
-        drawn per step)."""
+        """One sweep's draws from the state's generator (the Gumbel noise
+        last, and only where the whole sweep's fits in _GUMBEL_BYTES: else
+        `pieces` draws it)."""
         st = mc.system
         n, d = st.position.shape[1:]
         B = draw_batch(mc.chains, st.n_chains)  # the global batch's
@@ -674,11 +707,7 @@ class _Kernel:
         def uniform(*shape, dtype=torch.float64):
             return own_rows(torch.rand(shape, generator=gen, dtype=dtype, device=dev), mc.chains)
 
-        u_move = uniform(B, steps)
-        move = torch.zeros_like(u_move, dtype=torch.int64)
-        for c in self.cum:
-            move += (u_move >= c).long()
-        out = {"move": move}
+        out = {"move": self.move_index(uniform(B, steps))}
         if self.has_disp:
             out["i"] = _index(uniform(B, steps), n)
             out["normal"] = own_rows(torch.randn((B, steps, d), generator=gen, dtype=dt, device=dev), mc.chains)
@@ -689,6 +718,8 @@ class _Kernel:
         if self.has_flip and B * steps * mc.flip_rounds <= _FLIP_SWEEP_DRAWS:
             out["flip"] = self.flip_draws(mc, steps)
         out["u"] = torch.clamp_min(uniform(B, steps, dtype=dt), torch.finfo(dt).tiny)
+        if self.has_bias and self.noise_steps(mc, steps) >= steps:
+            out["gumbel"] = self.gumbel(mc, steps)
         return out
 
     def flip_draws(self, mc: MCState, steps: int):
@@ -702,12 +733,36 @@ class _Kernel:
         L = ml[m]
         return torch.stack([m, _index(u[..., 1], L), _index(u[..., 2], torch.clamp_min(L - 1, 1))], dim=-1)
 
-    def gumbel(self, mc: MCState):
+    def noise_steps(self, mc: MCState, steps: int) -> int:
+        """Steps per draw of the sweep's Gumbel noise (gumbel_steps, at the
+        global batch's shape, as the noise is drawn)."""
+        st = mc.system
+        return gumbel_steps(draw_batch(mc.chains, st.n_chains), steps, st.n_particles, st.position.element_size())
+
+    def gumbel(self, mc: MCState, steps: int):
+        """EnergyBias's Gumbel noise [B, steps, 2, N] from the state's
+        generator, -log(-log u) of uniforms u kept at least the dtype's
+        smallest normal (in place: a sweep's noise may take _GUMBEL_BYTES)."""
         st = mc.system
         B, n = draw_batch(mc.chains, st.n_chains), st.n_particles
         dt = st.position.dtype
-        u = own_rows(torch.rand((B, 2, n), generator=mc.generator, dtype=dt, device=st.position.device), mc.chains)
-        return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(dt).tiny)))
+        u = own_rows(torch.rand((B, steps, 2, n), generator=mc.generator, dtype=dt, device=st.position.device),
+                     mc.chains)
+        return u.clamp_min_(torch.finfo(dt).tiny).log_().neg_().log_().neg_()
+
+    def pieces(self, mc: MCState, steps: int, draws):
+        """The sweep's draws as the launches (and the plain step's loop)
+        take them: whole, unless the pool has EnergyBias and its noise is
+        not among them; then in pieces of noise_steps steps, each piece's
+        noise drawn from the state's generator as the piece begins."""
+        if not self.has_bias or "gumbel" in draws:
+            yield draws
+            return
+        c = self.noise_steps(mc, steps)
+        for s0 in range(0, steps, c):
+            part = {key: v[:, s0:s0 + c] for key, v in draws.items()}
+            part["gumbel"] = self.gumbel(mc, part["move"].shape[1])
+            yield part
 
     def step(self, w: _Work, pool_params, dr, counts):
         """One step of every chain, in place on `w`; returns accept [B]."""
@@ -754,23 +809,45 @@ class _Kernel:
                     NB.move_particle_(w.cell, i, NB.cell_index(new_pos_i, st.box, self.spec))
             return accept
 
-    def sweep_kernel(self, mc: MCState, pool_params, draws):
-        """A whole sweep of every chain as one launch of the hand kernel
-        (takes_sweep_kernel): (position, energy, accepts [B, S]). Sigma per
-        move is read from `pool_params` on the device, detached; the packed
-        table is built once per device and dtype."""
-        st = mc.system
-        pos = st.position
-        dt = pos.dtype
-        key = (pos.device, dt)
+    def device_tables(self, device, dt):
+        """The packed pair table and the move table (seq_cuda.move_table) on
+        `device`, built once per device and dtype."""
+        key = (device, dt)
         if key not in self._packed:
-            self._packed[key] = seq_cuda.pack_table(self.config.table, dt).to(pos.device)
-        with tracing.span("seq.sweep_kernel"):
-            sigma = torch.stack([p["sigma"].detach().to(dt).expand(st.n_chains) for p in pool_params], dim=1)
-            return seq_cuda.disp_sweep(
-                pos, st.species, st.box, st.temperature, st.energy, self._packed[key], sigma, draws["move"],
-                draws["i"], draws["normal"].to(dt), draws["u"].to(dt), kinds=self.kinds,
+            self._packed[key] = (
+                seq_cuda.pack_table(self.config.table, dt).to(device),
+                torch.tensor(seq_cuda.move_table(self.config.pool), dtype=torch.int32, device=device),
             )
+        return self._packed[key]
+
+    def sweep_kernel(self, st: SystemState, pool_params, draws):
+        """The steps of `draws` for every chain as one launch of the hand
+        kernel (takes_sweep_kernel): (the system after them, accepts [B,
+        steps]). Sigma per move, and EnergyBias's theta1 and theta2, are read
+        from `pool_params` on the device, detached, per chain where they are
+        [B] tensors (1 and 0 where a move has none)."""
+        pos = st.position
+        dt, dev, B = pos.dtype, pos.device, st.n_chains
+        table, moves = self.device_tables(dev, dt)
+
+        def per_chain(name, empty):
+            return torch.stack([(p[name].detach().to(dt) if name in p else empty).expand(B) for p in pool_params], dim=1)
+
+        def get(name, dtype=None):
+            return draws[name].to(dtype or draws[name].dtype).contiguous() if name in draws else None
+
+        with tracing.span("seq.sweep_kernel"):
+            sigma = per_chain("sigma", torch.ones((), dtype=dt, device=dev) if self.has_swap else None)
+            theta = None
+            if self.has_bias:
+                nil = torch.zeros((), dtype=dt, device=dev)
+                theta = torch.stack([per_chain("theta1", nil), per_chain("theta2", nil)], dim=-1)
+            position, species, energy, accepts = seq_cuda.sweep(
+                pos, st.species, st.box, st.temperature, st.energy, table, sigma, get("move"), get("i"),
+                get("normal", dt), get("u", dt), moves=moves if self.has_swap else None, theta=theta, r1=get("r1"),
+                r2=get("r2"), gumbel=get("gumbel", dt), kinds=self.kinds,
+            )
+        return st.replace(position=position, species=species, energy=energy), accepts
 
     def delta_e(self, w: _Work, prop: Proposal, x_i):
         """(e1, e2) [B] of the step's proposals on the working state."""
@@ -850,22 +927,26 @@ def build_sweep_fn(config: KernelConfig, n: int) -> Callable:
         if not takes_sweep_kernel(config, mc.system):
             return plain(mc, pool_params, draws)
         draws, _ = k.prepare(mc, steps, draws)
-        position, energy, accepts = k.sweep_kernel(mc, pool_params, draws)
-        att, acc = counted(mc, draws["move"], accepts)
-        return mc.replace(system=mc.system.replace(position=position, energy=energy), attempted=att, accepted=acc)
+        st, accepts = mc.system, []
+        for part in k.pieces(mc, steps, draws):
+            st, acc = k.sweep_kernel(st, pool_params, part)
+            accepts.append(acc)
+        att, acc = counted(mc, draws["move"], accepts[0] if len(accepts) == 1 else torch.cat(accepts, dim=1))
+        return mc.replace(system=st, attempted=att, accepted=acc)
 
     def plain(mc: MCState, pool_params, draws=None) -> MCState:
         draws, counts = k.prepare(mc, steps, draws)
         w = _Work(mc)
         B = mc.system.n_chains
         accepts = torch.zeros((B, steps), dtype=torch.int64, device=mc.system.position.device)
-        for s in range(steps):
-            dr = {key: v[:, s] for key, v in draws.items()}
-            if k.has_bias and "gumbel" not in dr:
-                dr["gumbel"] = k.gumbel(mc)
-            if k.has_flip and "flip" not in dr:
-                dr["flip"] = k.flip_draws(mc, 1)[:, 0]
-            accepts[:, s] = k.step(w, pool_params, dr, counts)
+        s = 0
+        for part in k.pieces(mc, steps, draws):
+            for t in range(part["move"].shape[1]):
+                dr = {key: v[:, t] for key, v in part.items()}
+                if k.has_flip and "flip" not in dr:
+                    dr["flip"] = k.flip_draws(mc, 1)[:, 0]
+                accepts[:, s] = k.step(w, pool_params, dr, counts)
+                s += 1
         return w.state(mc, *counted(mc, draws["move"], accepts))
 
     sweep.plain = plain

@@ -28,7 +28,7 @@ capture. Names used by the port (PERF.md §3 lists what reads each):
     seq.draws  seq.sweep_kernel  seq.step  seq.propose  seq.delta_e
     seq.accept  seq.cell_update
     counters: cb_cuda.launches  seq_cuda.launches  seq_cuda.steps
-    cb.submove_calls.<kind>
+    seq_cuda.swap_launches  cb.submove_calls.<kind>
 """
 
 from __future__ import annotations

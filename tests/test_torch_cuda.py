@@ -346,6 +346,173 @@ def test_sequential_sweep_kernel_matches_cpu(cuda, d, model, precision, chains, 
     assert ledger_gap(c.system) <= tol
 
 
+# The swap pools of the sequential sweep's hand kernel: DoubleUniform alone,
+# EnergyBias alone, and jbb2d-n1000.seq-swap-b28's pool (Gaussian
+# displacement 0.8, DoubleUniform 1<->3 0.1, EnergyBias 2<->3 at theta (0.11,
+# 1.62) 0.1); species 0-based
+SWAP_POOLS = {
+    "double_uniform": (MB.discrete_swap(0, 2, 1.0),),
+    "energy_bias": (MB.discrete_swap(1, 2, 1.0, policy="energy_bias", theta1=0.3, theta2=-0.2),),
+    "seq-swap-b28": (MB.displacement(0.1, 0.8), MB.discrete_swap(0, 2, 0.1),
+                     MB.discrete_swap(1, 2, 0.1, policy="energy_bias", theta1=0.11, theta2=1.62)),
+}
+# (pool, d, precision, chains, N, sweepstep, theta per chain): d 2 and 3;
+# float64 and mixed; 1, 3 and 28 chains; N 216 and 1,000, with the cell's own
+# shape (28 chains, N = 1,000, mixed, a whole sweep); the last case's chain
+# does not fit in shared memory (float64 3D, N = 10,000: the L2 path)
+SWAP_KERNEL_CASES = [
+    ("double_uniform", 2, "float64", 3, 216, 200, False),
+    ("energy_bias", 3, "float64", 1, 216, 120, False),
+    ("energy_bias", 2, "mixed", 3, 216, 150, True),
+    ("seq-swap-b28", 3, "float64", 3, 216, 216, False),
+    ("seq-swap-b28", 2, "mixed", 3, 1000, 300, True),
+    ("double_uniform", 3, "mixed", 1, 1000, 200, False),
+    ("seq-swap-b28", 2, "mixed", 28, 1000, 1000, False),
+    ("seq-swap-b28", 2, "float64", 28, 1000, 400, False),
+    ("seq-swap-b28", 3, "float64", 2, 10000, 40, False),
+]
+
+
+def _swap_kernel_state(d, precision, chains, n, dev, species=3):
+    """`chains` chains of a jittered lattice of the JBB table at density 0.9
+    (1.2 at N = 10,000), each with its own species order, box and
+    temperature; `species` 3 uses species 1-3 (2 leaves species 3 empty)."""
+    dt, ledger = SEQ_PRECISIONS[precision]
+    rho = 1.2 if n > 1000 else 0.9
+    pos, sp = lattice(n, d, rho, seed=n + d)
+    if species == 3:
+        sp = sp + (np.arange(n) % 3 == 0)
+    rng = np.random.default_rng(n + chains)
+    sps = np.stack([rng.permutation(sp) for _ in range(chains)])
+    scale = 1.0 + 0.02 * np.arange(chains)
+    box = ((n / rho) ** (1 / d) * scale)[:, None] * np.ones((chains, d))
+    table = TT.JBB(dt, dev)
+    st = make_system(pos[None] * scale[:, None, None], sps, rho, np.linspace(0.7, 1.3, chains), box=box,
+                     dtype=dt, device=dev)
+    return initialize_energy(st, table, energy_dtype=ledger), table
+
+
+def _swap_draws(pool, chains, n, d, steps, seed):
+    """Fed-in draws from a numpy seed: the swaps' ranks as uniforms (the
+    sweep scales them by the chosen swap's populations), the Gumbel noise of
+    every step."""
+    g = np.random.default_rng(seed)
+    p = np.array([mv.probability for mv in pool])
+    out = dict(move=g.choice(len(pool), size=(chains, steps), p=p / p.sum()),
+               u=g.uniform(1e-30, 1, (chains, steps)))
+    if any(mv.action == "displacement" for mv in pool):
+        out["i"], out["normal"] = g.integers(0, n, (chains, steps)), g.normal(0, 1, (chains, steps, d))
+    if any(mv.policy == "double_uniform" for mv in pool):
+        out["r1"], out["r2"] = g.uniform(0, 1, (chains, steps)), g.uniform(0, 1, (chains, steps))
+    if any(mv.policy == "energy_bias" for mv in pool):
+        out["gumbel"] = -np.log(-np.log(g.uniform(1e-300, 1, (chains, steps, 2, n))))
+    return out
+
+
+def _swap_params(pool, dt, dev, chains, per_chain):
+    """The pool's parameters; with `per_chain` each chain its own theta, a
+    [B] tensor, as a learner may hold them."""
+    params = MB.init_pool_params(pool, dt, dev)
+    if not per_chain:
+        return params
+    step = 0.05 * torch.arange(chains, dtype=dt, device=dev)
+    return tuple({k: v + step if k.startswith("theta") else v for k, v in p.items()} for p in params)
+
+
+@pytest.mark.parametrize("pool_name,d,precision,chains,n,sweepstep,per_chain", SWAP_KERNEL_CASES)
+def test_swap_sweep_kernel_matches_plain(cuda, pool_name, d, precision, chains, n, sweepstep, per_chain):
+    """A dense sweep of a pool with DoubleUniform and EnergyBias swaps on the
+    card runs as one launch of the hand kernel's swap variant and matches
+    the plain step on the card (`sweep.plain`) on the same fed-in draws:
+    same counters and species, positions within 1e-9 (float64) or 1e-4
+    (mixed), ledgers within 1e-12 or 1e-5 per particle of each other and of
+    total_energy_dense; every chain keeps its composition."""
+    pool = SWAP_POOLS[pool_name]
+    dt = SEQ_PRECISIONS[precision][0]
+    st, table = _swap_kernel_state(d, precision, chains, n, cuda)
+    config = K.KernelConfig(pool=pool, table=table, cell_spec=None, sweepstep=sweepstep)
+    assert K.takes_sweep_kernel(config, st)
+    sweep = K.build_sweep_fn(config, n)
+    params = _swap_params(pool, dt, cuda, chains, per_chain)
+    draws = {k: torch.tensor(v, dtype=dt if k in ("normal", "u", "gumbel") else None, device=cuda)
+             for k, v in _swap_draws(pool, chains, n, d, sweepstep, n + d).items()}
+    mc = K.init_mc_state(st, config, 0)
+    counted = ("seq_cuda.launches", "seq_cuda.swap_launches", "seq_cuda.steps")
+    before = {c: tracing.counters().get(c, 0) for c in counted}
+    a = sweep(mc, params, draws)
+    assert [tracing.counters().get(c, 0) - before[c] for c in counted] == [1, 1, chains * sweepstep]
+    b = sweep.plain(mc, params, draws)
+    if n > 1000:
+        assert not seq_cuda.launch_plan(dt, d, n, table.n_species, len(pool), ledger=st.energy.dtype, swaps=True,
+                                        bias=True)[2], "expected the L2 path"
+    assert torch.equal(a.attempted, b.attempted) and torch.equal(a.accepted, b.accepted)
+    assert torch.equal(a.system.species, b.system.species)
+    swaps = [m for m, mv in enumerate(pool) if mv.action == "swap"]
+    assert int(a.accepted[:, swaps].sum()) > 0 and int((a.attempted - a.accepted)[:, swaps].sum()) > 0
+    atol, tol = (1e-9, 1e-12) if dt == torch.float64 else (1e-4, 1e-5)
+    assert float((a.system.position - b.system.position).abs().max()) <= atol
+    assert float((a.system.energy.double() - b.system.energy.double()).abs().max()) / n <= tol
+    for s in (a.system, b.system):
+        e = total_energy_dense(s.position.double(), s.species, s.box.double(), table.astype(torch.float64))
+        assert float((s.energy.double() - e).abs().max()) / n <= tol
+    S = table.n_species
+    for c in range(chains):
+        assert torch.equal(torch.bincount(a.system.species[c], minlength=S), torch.bincount(st.species[c], minlength=S))
+
+
+def test_swap_sweep_kernel_rejects_an_empty_population(cuda):
+    """With species 3 empty, every DoubleUniform and EnergyBias swap onto it
+    rejects in the kernel as in the plain step, and nothing changes but the
+    displacements' positions."""
+    pool = SWAP_POOLS["seq-swap-b28"]
+    st, table = _swap_kernel_state(2, "float64", 3, 216, cuda, species=2)
+    config = K.KernelConfig(pool=pool, table=table, cell_spec=None, sweepstep=216)
+    sweep = K.build_sweep_fn(config, 216)
+    params = MB.init_pool_params(pool, torch.float64, cuda)
+    draws = {k: torch.tensor(v, device=cuda) for k, v in _swap_draws(pool, 3, 216, 2, 216, 5).items()}
+    mc = K.init_mc_state(st, config, 0)
+    a, b = sweep(mc, params, draws), sweep.plain(mc, params, draws)
+    assert torch.equal(a.accepted, b.accepted) and torch.equal(a.system.species, st.species)
+    assert int(a.attempted[:, 1:].sum()) > 0 and int(a.accepted[:, 1:].sum()) == 0
+    assert int(a.accepted[:, 0].sum()) > 0
+    assert float((a.system.position - b.system.position).abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("pieces", [1, 4])
+def test_swap_sweep_kernel_on_the_generator(cuda, monkeypatch, pieces):
+    """A sweep of seq-swap-b28's pool on the state's own generator: one
+    launch per piece of Gumbel noise (the whole sweep under the byte budget;
+    four pieces under a budget of a quarter sweep), each counted in
+    `seq_cuda.swap_launches`; no host synchronisation; the same moves as
+    the plain step from the same generator state; every chain keeps its
+    composition."""
+    pool = SWAP_POOLS["seq-swap-b28"]
+    n, steps, chains = 216, 200, 3
+    st, table = _swap_kernel_state(2, "mixed", chains, n, cuda)
+    config = K.KernelConfig(pool=pool, table=table, cell_spec=None, sweepstep=steps)
+    sweep = K.build_sweep_fn(config, n)
+    params = MB.init_pool_params(pool, torch.float32, cuda)
+    if pieces > 1:
+        monkeypatch.setattr(K, "_GUMBEL_BYTES", chains * 2 * n * 4 * steps // pieces)
+    assert -(-steps // K.gumbel_steps(chains, steps, n, 4)) == pieces
+    sweep(K.init_mc_state(st, config, 1), params)  # builds the device constants
+    torch.cuda.synchronize()
+    before = tracing.counters().get("seq_cuda.swap_launches", 0)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a = sweep(K.init_mc_state(st, config, 1), params)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tracing.counters().get("seq_cuda.swap_launches", 0) - before == pieces
+    b = sweep.plain(K.init_mc_state(st, config, 1), params)
+    assert torch.equal(a.attempted, b.attempted) and torch.equal(a.accepted, b.accepted)
+    assert torch.equal(a.system.species, b.system.species)
+    assert int(a.accepted[:, 1:].sum()) > 0
+    S = table.n_species
+    for c in range(chains):
+        assert torch.equal(torch.bincount(a.system.species[c], minlength=S), torch.bincount(st.species[c], minlength=S))
+
+
 def test_replica_exchange_cuda_matches_cpu(cuda):
     """A replica-exchange pass on a card state (with its cell list) against
     the same pass on the CPU, on the same uniforms; then a pass from the
@@ -414,8 +581,8 @@ def test_resume_bitwise_cuda(cuda, tmp_path, backend):
     """On the card, a run resumed from its mid-run StoreCheckpoints file ends
     bitwise where the straight-through run ends (positions, species,
     energies, counters); the card's checkpoint does not load on the CPU.
-    `sequential-displacement` (a pool of two displacements) runs its sweeps
-    through the hand kernel."""
+    Both sequential pools (a displacement and a DoubleUniform swap, and two
+    displacements) run their sweeps through the hand kernel."""
     from particlesmc_tpu_torch.engine.simulation import Simulation
     from particlesmc_tpu_torch.io import checkpoint as CKPT
     from particlesmc_tpu_torch.io.loader import Chains
@@ -445,7 +612,7 @@ def test_resume_bitwise_cuda(cuda, tmp_path, backend):
     assert torch.equal(a.mc.attempted, b.mc.attempted) and torch.equal(a.mc.accepted, b.mc.accepted)
     assert a.mc.system.position.is_cuda and int(a.mc.accepted.sum()) > 0
     launched = tracing.counters().get("seq_cuda.launches", 0) - launches
-    assert launched == (12 if backend == "sequential-displacement" else 0)  # 8 sweeps, then 4 resumed
+    assert launched == (0 if cb else 12)  # 8 sweeps, then 4 resumed
     with pytest.raises(ValueError, match="cuda generator state .* cpu device"):
         if cb:
             CKPT.load_checkpoint_checkerboard(ckpt, a.cb_spec, device="cpu")

@@ -370,17 +370,17 @@ def test_mixed_precision_ledger_and_draw_checks():
               {"move": z[:, :5], "u": z[:, :5].float(), "i": z[:, :5], "normal": torch.zeros((2, 5, 2))})
 
 
-# (pool, system, the hand kernel takes a card run): Gaussian displacements
-# with the dense ΔE on an atomic system take moves/seq_cuda.py's kernel, in
-# float64, mixed and float32; a swap, an EnergyBias swap, a SmartGaussian
-# displacement, the cell list, a bonded system and a molecular flip keep the
-# plain step, and so does a float64 system with a float32 ledger
+# (pool, system, the hand kernel takes a card run): Gaussian displacements,
+# DoubleUniform swaps and EnergyBias swaps with the dense ΔE on an atomic
+# system take moves/seq_cuda.py's kernel, in float64, mixed and float32; a
+# SmartGaussian displacement, the cell list, a bonded system and a molecular
+# flip keep the plain step, and so does a float64 system with a float32 ledger
 SELECTION_CASES = {
     "displacement": ("disp", "f64", True),
     "two-displacements": ("disp2", "mixed", True),
     "float32": ("disp", "f32", True),
-    "swap": ("swap", "f64", False),
-    "energy-bias": ("bias", "f64", False),
+    "swap": ("swap", "f64", True),
+    "energy-bias": ("bias", "f64", True),
     "smart": ("smart", "f64", False),
     "cells": ("disp", "cells", False),
     "bonds": ("disp", "bonds", False),
@@ -428,14 +428,16 @@ def _as_on_card(system):
 @pytest.mark.parametrize("case", sorted(SELECTION_CASES))
 def test_sweep_kernel_selection(case, monkeypatch):
     """Which sequential sweeps run through the hand kernel on the card
-    (takes_sweep_kernel): pools of Gaussian displacements with the dense ΔE
-    on an atomic system, in float64, mixed or float32. On the CPU every
-    sweep takes the plain step and the seq_cuda counters stay as they were.
-    Where the card would take the kernel: on the CPU the sweep equals
-    `sweep.plain` bitwise, on fed-in draws equal to the generator's; the
-    kernel's wrapper refuses CPU tensors (no fallback); and the launch gets
-    each move's sigma per chain, in the position dtype, and the table's
-    kinds."""
+    (takes_sweep_kernel): pools of Gaussian displacements, DoubleUniform
+    swaps and EnergyBias swaps with the dense ΔE on an atomic system, in
+    float64, mixed or float32. On the CPU every sweep takes the plain step
+    and the seq_cuda counters stay as they were. Where the card would take
+    the kernel: on the CPU the sweep equals `sweep.plain` bitwise, on fed-in
+    draws equal to the generator's; the kernel's wrapper refuses CPU tensors
+    (no fallback); and the launch gets each move's sigma per chain, in the
+    position dtype, the table's kinds and the draws; a pool with swaps also
+    gets the move table, and one with EnergyBias each move's theta per chain
+    (0 where the move has none) and the Gumbel noise."""
     pools_name, system_name, on_card = SELECTION_CASES[case]
     pool, system, config = _selection_case(pools_name, system_name)
     assert TK.takes_sweep_kernel(config, _as_on_card(system)) == on_card
@@ -446,7 +448,7 @@ def test_sweep_kernel_selection(case, monkeypatch):
         return
     params = TMB.init_pool_params(pool, system.position.dtype, "cpu")
     mc = TK.init_mc_state(system, config, 5)
-    before = {c: tracing.counters().get(c, 0) for c in ("seq_cuda.launches", "seq_cuda.steps")}
+    before = {c: tracing.counters().get(c, 0) for c in ("seq_cuda.launches", "seq_cuda.swap_launches", "seq_cuda.steps")}
     sweep = TK.build_sweep_fn(config, system.n_particles)
     out = sweep(mc, params)
     assert {c: tracing.counters().get(c, 0) for c in before} == before
@@ -459,10 +461,65 @@ def test_sweep_kernel_selection(case, monkeypatch):
         assert torch.equal(ran.system.position, out.system.position) and torch.equal(ran.system.energy, out.system.energy)
         assert torch.equal(ran.accepted, out.accepted) and torch.equal(ran.attempted, out.attempted)
     with pytest.raises(ValueError, match="CUDA card"):
-        k.sweep_kernel(mc, params, draws)
+        k.sweep_kernel(system, params, draws)
     launched = []
-    monkeypatch.setattr(seq_cuda, "disp_sweep", lambda *args, **kw: launched.append((args, kw)))
-    k.sweep_kernel(mc, params, draws)
+
+    def record(*args, **kw):
+        launched.append((args, kw))
+        return system.position, system.species, system.energy, torch.zeros_like(draws["move"])
+
+    monkeypatch.setattr(seq_cuda, "sweep", record)
+    k.sweep_kernel(system, params, draws)
     (args, kw), = launched
-    want = torch.tensor([dict(mv.params)["sigma"] for mv in pool], dtype=system.position.dtype).expand(system.n_chains, -1)
-    assert torch.equal(args[6], want) and kw == {"kinds": k.kinds}
+    dt, B = system.position.dtype, system.n_chains
+    sigma = [dict(mv.params).get("sigma", 1.0) for mv in pool]
+    assert torch.equal(args[6], torch.tensor(sigma, dtype=dt).expand(B, -1)) and kw["kinds"] == k.kinds
+    assert torch.equal(args[7], draws["move"]) and torch.equal(args[8], draws["i"])
+    assert all(torch.equal(kw[r], draws[r]) if r in draws else kw[r] is None for r in ("r1", "r2"))
+    if not k.has_swap:
+        assert kw["moves"] is None and kw["theta"] is None and kw["gumbel"] is None
+        return
+    assert torch.equal(kw["moves"], torch.tensor(seq_cuda.move_table(pool), dtype=torch.int32))
+    if pools_name != "bias":
+        assert kw["theta"] is None and kw["gumbel"] is None
+        return
+    theta = [[dict(mv.params).get(t, 0.0) for t in ("theta1", "theta2")] for mv in pool]
+    assert torch.equal(kw["theta"], torch.tensor(theta, dtype=dt).expand(B, -1, -1))
+    assert torch.equal(kw["gumbel"], draws["gumbel"])
+    # per-chain theta, as a learner may hold it, reaches the launch per chain
+    launched.clear()
+    per_chain = tuple({n: v + torch.arange(B, dtype=dt) if n.startswith("theta") else v for n, v in p.items()}
+                      for p in params)
+    k.sweep_kernel(system, per_chain, draws)
+    (args, kw), = launched
+    learned = torch.tensor([[float(mv.policy == "energy_bias")] * 2 for mv in pool], dtype=dt)
+    want = torch.tensor(theta, dtype=dt)[None] + torch.arange(B, dtype=dt)[:, None, None] * learned
+    assert torch.equal(kw["theta"], want)
+
+
+def test_gumbel_pieces():
+    """The sweep's EnergyBias Gumbel noise [chains, steps, 2, N] is drawn
+    whole while it fits in the byte budget, else in pieces of as many steps
+    as fit (one launch of the hand kernel each): jbb2d-n1000.seq-swap-b28's
+    28 chains of N = 1,000 in float32 take one piece for the 1,000-step
+    sweep; float64 at N = 10,000 takes 17 pieces of 59 steps; a step larger
+    than the budget still takes one step per piece."""
+    assert TK.gumbel_steps(28, 1000, 1000, 4) == 1000
+    assert 28 * 1000 * 2 * 1000 * 4 <= TK._GUMBEL_BYTES
+    c = TK.gumbel_steps(28, 1000, 10000, 8)
+    assert c == 59 and -(-1000 // c) == 17
+    assert 28 * 2 * 10000 * 8 * c <= TK._GUMBEL_BYTES < 28 * 2 * 10000 * 8 * (c + 1)
+    assert TK.gumbel_steps(4096, 1000, 100000, 8) == 1
+
+
+@pytest.mark.parametrize("probabilities", [(1.0,), (0.8, 0.1, 0.1), (0.5, 0.0, 0.25, 0.25)])
+def test_move_index(probabilities):
+    """Each step's pool move from its uniform is #{cum_k <= u} over the
+    pool's cumulative shares, at the shares' edges too."""
+    pool = tuple(TMB.displacement(0.1, p) for p in probabilities)
+    config = TK.KernelConfig(pool=pool, table=TT.KobAndersen(device="cpu"), cell_spec=None)
+    k = TK._Kernel(config, 8)
+    u = torch.cat([torch.rand(1000, dtype=torch.float64, generator=torch.Generator().manual_seed(0)),
+                   torch.tensor(k.cum + [0.0, np.nextafter(1.0, 0.0)], dtype=torch.float64)])
+    want = sum((u >= c).long() for c in k.cum) if k.cum else torch.zeros_like(u, dtype=torch.int64)
+    assert torch.equal(k.move_index(u), want)
